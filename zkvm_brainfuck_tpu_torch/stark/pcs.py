@@ -1,0 +1,467 @@
+"""Two-adic FRI polynomial commitment scheme (the reference's TwoAdicFriPcs).
+
+Counterpart of the JAX package's stark/pcs.py in its normal-memory mode
+(the low-memory mode, the column-blocked LDE programs and the mesh NTT
+dispatch are not ported):
+
+- commit: evals over (log_n, shift) domains -> coset LDE onto
+  GENERATOR*H_{2n} (blowup 2), committed in bit-reversed row order under one
+  Merkle MMCS batch.  The natural-order LDEs are kept for the quotient,
+  the openings and the queries.
+- open: opened values evaluated barycentrically from the LDEs; the
+  transcript observes them, samples the batch-combination alpha, builds
+  one reduced opening per height and runs FRI.  Query proofs bundle the
+  input-batch Merkle openings and the FRI layer walks.
+- verify: full host-side replay (numpy), copied from the JAX package.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from functools import lru_cache
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..device import elapsed, resolve_device
+from ..ops import ext as xe
+from ..ops import field as xf
+from ..ops import merkle as mk
+from ..ops import ntt as nt
+from ..ops.field import GENERATOR, I32, I64, P
+from . import ef_host as efh
+from .challenger import DuplexChallenger
+from .domains import Domain, domain_points_dev
+from .errors import InvalidOpeningArgument, OpeningShapeError
+from .fri import FriProof, fri_check_queries_np, fri_prove, fri_verify_transcript
+
+LOG_BLOWUP = 1
+
+
+@dataclass
+class PcsProverData:
+    domains: List[Domain]
+    ldes: List[torch.Tensor]  # LDE evals over GENERATOR*H_2n, natural order
+    tree: mk.MerkleTree  # commits bit-reversed LDE rows
+    sig: tuple  # per matrix (log_n, shift, width)
+
+    @property
+    def root(self) -> np.ndarray:
+        return self.tree.root
+
+
+def lde(evals: torch.Tensor, log_n: int, shift: int) -> torch.Tensor:
+    """Evaluations over shift*H_n -> evaluations over GENERATOR*H_2n
+    (natural order): iNTT (with its n^-1), scale coefficient i by
+    (GENERATOR/shift)^i, zero-pad, NTT."""
+    n = 1 << log_n
+    c = nt.ntt_dev(evals, log_n, inverse=True)
+    lde_shift = GENERATOR * pow(shift, P - 2, P) % P
+    sc = xf.fmul(c, nt.shift_powers_dev(lde_shift, log_n, evals.device)[:, None])
+    pad = torch.zeros((n * ((1 << LOG_BLOWUP) - 1), sc.shape[1]), dtype=I32, device=sc.device)
+    return nt.ntt_dev(torch.cat([sc, pad]), log_n + LOG_BLOWUP, inverse=False)
+
+
+def _group_sigs(sig: tuple):
+    """Group (index, matsig) by LDE height, preserving batch order within
+    each group (the digest layer hashes same-height rows in batch order)."""
+    groups: Dict[int, list] = {}
+    for i, ms in enumerate(sig):
+        groups.setdefault(ms[0] + LOG_BLOWUP, []).append((i, ms))
+    return sorted(groups.items(), key=lambda kv: -kv[0])
+
+
+def pcs_commit(
+    domains_and_evals: Sequence[Tuple[Domain, torch.Tensor]], device=None
+) -> Tuple[np.ndarray, PcsProverData]:
+    """Commit a batch of (2^log_n, W) canonical eval matrices: LDE each,
+    hash each LDE-height group's bit-reversed rows into its digest layer,
+    walk the tree.  Runs on the card unless device="cpu"."""
+    device = resolve_device(device)
+    domains = [d for d, _ in domains_and_evals]
+    evals = [xf.as_field_tensor(e, device) for _, e in domains_and_evals]
+    for d, e in zip(domains, evals):
+        if e.dim() != 2 or e.shape[0] != d.size:
+            raise ValueError(f"evals of shape {tuple(e.shape)} do not fit {d}")
+    sig = tuple((d.log_n, d.shift, int(e.shape[1])) for d, e in zip(domains, evals))
+    heights = tuple(1 << (ln + LOG_BLOWUP) for ln, _, _ in sig)
+
+    ldes: List[torch.Tensor] = [None] * len(sig)
+    digests: Dict[int, torch.Tensor] = {}
+    for log_lde, members in _group_sigs(sig):
+        for i, (log_n, shift, _w) in members:
+            ldes[i] = lde(evals[i], log_n, shift)
+        digests[1 << log_lde] = mk.sponge_rows([ldes[i] for i, _ms in members], bitrev=True)
+
+    plan = mk.make_plan(heights)
+    flat = mk.build_tree(plan, digests)
+    tree = mk.MerkleTree(
+        matrices=list(ldes), plan=plan, flat=flat, root=mk.root_of(plan, flat), bitrev=True
+    )
+    return tree.root, PcsProverData(domains=domains, ldes=list(ldes), tree=tree, sig=sig)
+
+
+# ---------------------------------------------------------------------------
+# Opening-value evaluation (barycentric from the LDEs)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class BatchOpening:
+    """Input openings for one round at one query: rows per matrix + path."""
+
+    opened_rows: List[np.ndarray]
+    proof: np.ndarray
+
+
+@dataclass
+class PcsProof:
+    fri: FriProof
+    # query_input_openings[q][round] = BatchOpening
+    query_input_openings: List[List[BatchOpening]]
+
+
+def _open_groups(sig: tuple):
+    groups: Dict[tuple, list] = {}
+    for r, mats in enumerate(sig):
+        for i, (log_n, _shift, _w, zis) in enumerate(mats):
+            log_h = log_n + LOG_BLOWUP
+            for pi, zi in enumerate(zis):
+                groups.setdefault((log_h, zi), []).append((r, i, pi))
+    return list(groups.items())
+
+
+def _inv_x_minus_z(pts: torch.Tensor, z: tuple):
+    """EF planes of inv(x - z) over base points x."""
+    return xe.einv((xf.fsub(pts, z[0]), xf.fsub(0, z[1]), xf.fsub(0, z[2]), xf.fsub(0, z[3])))
+
+
+def _weighted_col_sums(m: torch.Tensor, w: tuple) -> torch.Tensor:
+    """(W, 4) raw sums S_c = sum_i m[i, c] * w(x_i) over the rows (exact)."""
+    out = []
+    for wt in w:
+        out.append(((m.to(I64) * wt.to(I64)[:, None]) % P).sum(0) % P)
+    return torch.stack(out, dim=-1).to(I32)
+
+
+def open_eval_group(mats: Sequence[torch.Tensor], z: tuple, pts: torch.Tensor) -> torch.Tensor:
+    """Opened-value raw sums for ONE (LDE height, point) group, evaluated
+    barycentrically from the LDEs.  For evaluations f(x_i) on the blowup
+    coset g*H (|H| = N'):
+
+        f(z) = (z^N' - g^N')/(N' g^N') * sum_i f(x_i) * x_i / (z - x_i)
+
+    The device computes S_c = sum_i f_c(x_i) * x_i * inv(x_i - z) per column;
+    the host multiplies by -(z^N' - g^N')/(N' g^N').
+    Output: (sum(widths), 4) canonical raw sums."""
+    w = xe.emul_base(_inv_x_minus_z(pts, z), pts)
+    return torch.cat([_weighted_col_sums(m, w) for m in mats])
+
+
+def _ro_plan(sig: tuple):
+    """Static reduced-opening plan: (log_h, zi, members, c0, w_total) per
+    (height, point) group; alpha powers are counted per (height, point)."""
+    groups: Dict[tuple, list] = {}
+    for r, mats in enumerate(sig):
+        for i, (log_n, _shift, w, zis) in enumerate(mats):
+            log_h = log_n + LOG_BLOWUP
+            for pi, zi in enumerate(zis):
+                groups.setdefault((log_h, zi), []).append((r, i, pi, w))
+    counters: Dict[tuple, int] = {}
+    plan = []
+    for (log_h, zi), members in groups.items():
+        w_total = sum(w for _r, _i, _pi, w in members)
+        c0 = counters.get((log_h, zi), 0)
+        plan.append((log_h, zi, tuple(members), c0, w_total))
+        counters[(log_h, zi)] = c0 + w_total
+    return plan
+
+
+def ro_accum(ro, mats_and_aps, s: tuple, inv_xz):
+    """ro += (sum_k alpha^k f_k(x) - S) * inv(x - z).
+
+    mats_and_aps: (lde (h, w), alpha powers (w, 4) int64 tensor) of the
+    members of one (height, point) group; ro and inv_xz are EF planes (h,)."""
+    a = None
+    for m, ap in mats_and_aps:
+        m64 = m.to(I64)
+        part = tuple(
+            ((m64 * ap[None, :, t]) % P).sum(1) % P for t in range(4)
+        )
+        a = part if a is None else tuple((x + y) % P for x, y in zip(a, part))
+    diff = xe.esub(tuple(x.to(I32) for x in a), s)
+    return xe.eadd(ro, xe.emul(diff, inv_xz))
+
+
+def _open_sig(rounds, zmap: Dict[tuple, int]) -> tuple:
+    sig = []
+    for data, points_per_mat in rounds:
+        mats = []
+        for (log_n, shift, w), pts in zip(data.sig, points_per_mat):
+            zis = tuple(zmap.setdefault(z, len(zmap)) for z in pts)
+            mats.append((log_n, shift, w, zis))
+        sig.append(tuple(mats))
+    return tuple(sig)
+
+
+def _bary_factor(log_m: int, shift: int, z: tuple) -> tuple:
+    """-(z^M - s^M) / (M * s^M): the host scalar completing the barycentric
+    raw sums on the coset shift*H_M (the sign folds inv(x-z) = -inv(z-x))."""
+    m = 1 << log_m
+    s_m = pow(shift, m, P)
+    num = efh.add_base(efh.epow(z, m), P - s_m)
+    den_inv = pow(m * s_m % P, P - 2, P)
+    return efh.neg(efh.mul_base(num, den_inv))
+
+
+def pcs_open(
+    rounds: Sequence[Tuple[PcsProverData, List[List[tuple]]]],
+    challenger: DuplexChallenger,
+    num_queries: int,
+    pow_bits: int,
+    timings: Dict[str, float] = None,
+):
+    """Open rounds at EF points.
+
+    rounds: (data, points_per_matrix) where points_per_matrix[i] is the list
+    of EF4 host tuples for matrix i.  Returns (opened_values, PcsProof);
+    opened_values[r][i][p] = list of EF tuples per column."""
+    timings = {} if timings is None else timings
+    t0 = time.time()
+    device = rounds[0][0].ldes[0].device
+
+    # 1. Opened values, barycentric, one evaluation per (LDE height, point).
+    zmap: Dict[tuple, int] = {}
+    sig = _open_sig(rounds, zmap)
+    z_by_index = {zi: z for z, zi in zmap.items()}
+    group_list = _open_groups(sig)
+    pieces = []
+    for (log_h, zi), members in group_list:
+        mats = [rounds[r][0].ldes[i] for r, i, _pi in members]
+        pts = domain_points_dev(log_h, GENERATOR, device)
+        pieces.append(open_eval_group(mats, z_by_index[zi], pts))
+    raw = [p.cpu().numpy() for p in pieces]
+
+    opened_values = [
+        [[None] * len(pts) for pts in points_per_mat] for _, points_per_mat in rounds
+    ]
+    for ys_raw, ((log_h, zi), members) in zip(raw, group_list):
+        factor = _bary_factor(log_h, GENERATOR, z_by_index[zi])
+        off = 0
+        for r, i, pi in members:
+            w = rounds[r][0].sig[i][2]
+            opened_values[r][i][pi] = [
+                efh.mul(factor, tuple(int(x) for x in y)) for y in ys_raw[off : off + w]
+            ]
+            off += w
+    timings["open_eval"] = time.time() - t0
+    t0 = time.time()
+
+    # 2. Bind opened values, then sample the combination challenge.
+    for round_vals in opened_values:
+        for mat_vals in round_vals:
+            for pt_vals in mat_vals:
+                for y in pt_vals:
+                    challenger.observe_slice(list(y))
+    alpha = challenger.sample_ext()
+
+    # 3. Reduced openings: one accumulation per (height, point) group.
+    alpha_pows_host = _ef_powers_host(alpha, _total_alpha_budget(rounds))
+    ro: Dict[int, tuple] = {}
+    for log_h, zi, members, c0, _w_total in _ro_plan(sig):
+        z = z_by_index[zi]
+        s = efh.ZERO
+        mats_and_aps = []
+        off = c0
+        for r, i, pi, w in members:
+            for k, y in enumerate(opened_values[r][i][pi]):
+                s = efh.add(s, efh.mul(alpha_pows_host[off + k], y))
+            ap = torch.tensor(alpha_pows_host[off : off + w], dtype=I64, device=device)
+            mats_and_aps.append((rounds[r][0].ldes[i], ap))
+            off += w
+        pts = domain_points_dev(log_h, GENERATOR, device)
+        if log_h not in ro:
+            ro[log_h] = xe.ezeros((1 << log_h,), device=device)
+        ro[log_h] = ro_accum(ro[log_h], mats_and_aps, s, _inv_x_minus_z(pts, z))
+    timings["reduced_open"] = elapsed(t0, device)
+
+    # 4. FRI.
+    fri_proof, indices = fri_prove(ro, challenger, LOG_BLOWUP, num_queries, pow_bits, timings)
+
+    # 5. Input-batch openings at the query indices.
+    t0 = time.time()
+    log_global = max(ro.keys())
+    idx = np.asarray(indices, np.int64)
+    per_round = mk.open_many(
+        [d.tree for d, _p in rounds],
+        [idx >> (log_global - (d.tree.max_height.bit_length() - 1)) for d, _p in rounds],
+    )
+    query_input_openings = [
+        [BatchOpening(opened_rows=[rw[q] for rw in rows], proof=paths[q]) for rows, paths in per_round]
+        for q in range(num_queries)
+    ]
+    timings["query_open"] = time.time() - t0
+    return opened_values, PcsProof(fri=fri_proof, query_input_openings=query_input_openings)
+
+
+def _total_alpha_budget(rounds) -> int:
+    per_height: Dict[int, int] = {}
+    for data, points_per_mat in rounds:
+        for (log_n, _s, w), pts in zip(data.sig, points_per_mat):
+            log_h = log_n + LOG_BLOWUP
+            per_height[log_h] = per_height.get(log_h, 0) + w * len(pts)
+    return max(per_height.values()) if per_height else 1
+
+
+def _ef_powers_host(alpha: tuple, n: int) -> List[tuple]:
+    out = [efh.ONE]
+    for _ in range(n):
+        out.append(efh.mul(out[-1], alpha))
+    return out
+
+
+@lru_cache(maxsize=None)
+def _lde_points_host(log_h: int) -> np.ndarray:
+    return Domain(log_h, GENERATOR).points_host()
+
+
+# ---------------------------------------------------------------------------
+# Verification (host), copied from the JAX package
+# ---------------------------------------------------------------------------
+
+
+def pcs_verify(
+    rounds: Sequence[Tuple[Sequence[int], List[Tuple[Domain, List[Tuple[tuple, List[tuple]]]]]]],
+    proof: PcsProof,
+    challenger: DuplexChallenger,
+    num_queries: int,
+    pow_bits: int,
+):
+    """rounds: (root, [(domain, [(point, ys_per_column), ...]), ...]).
+
+    Raises VerificationFailure on any inconsistency.
+    """
+    # 1. Replay opened-value observations; alpha.
+    for _root, mats in rounds:
+        for _domain, pts in mats:
+            for _z, ys in pts:
+                for y in ys:
+                    challenger.observe_slice(list(y))
+    alpha = challenger.sample_ext()
+
+    # 2. FRI transcript replay.
+    log_global = max(
+        domain.log_n + LOG_BLOWUP for _root, mats in rounds for domain, _ in mats
+    )
+    betas, indices = fri_verify_transcript(
+        proof.fri, challenger, log_global, num_queries, pow_bits
+    )
+
+    per_h: Dict[int, int] = {}
+    for _root, mats in rounds:
+        for domain, pts in mats:
+            lh = domain.log_n + LOG_BLOWUP
+            for _z, ys in pts:
+                per_h[lh] = per_h.get(lh, 0) + len(ys)
+    alpha_pows = _ef_powers_host(alpha, max(per_h.values()) if per_h else 1)
+
+    # 3. Per-query checks, vectorized over ALL queries at once.
+    if len(proof.query_input_openings) != num_queries or len(
+        proof.fri.query_commit_openings
+    ) != num_queries:
+        raise OpeningShapeError("wrong number of query openings")
+    for q in range(num_queries):
+        if len(proof.query_input_openings[q]) != len(rounds):
+            raise OpeningShapeError("wrong number of round openings")
+
+    idx_arr = np.asarray(indices, dtype=np.int64)
+    u64p = np.uint64(P)
+
+    # 3a. Input-batch Merkle proofs: one vectorized walk per round.
+    rows_by_round: List[List[np.ndarray]] = []
+    for r, (root, mats) in enumerate(rounds):
+        log_batch = max(d.log_n for d, _ in mats) + LOG_BLOWUP
+        dims = [(1 << (d.log_n + LOG_BLOWUP), len(_first_ys(pts))) for d, pts in mats]
+        try:
+            rows_mats = [
+                np.stack(
+                    [
+                        np.asarray(
+                            proof.query_input_openings[q][r].opened_rows[m],
+                            dtype=np.uint64,
+                        )
+                        for q in range(num_queries)
+                    ]
+                )
+                for m in range(len(mats))
+            ]
+            paths = np.stack(
+                [
+                    np.asarray(proof.query_input_openings[q][r].proof, dtype=np.uint64)
+                    for q in range(num_queries)
+                ]
+            )
+        except (ValueError, IndexError) as err:
+            raise OpeningShapeError(f"malformed input openings: {err}") from err
+        for (h, w), rm in zip(dims, rows_mats):
+            if rm.shape != (num_queries, w):
+                raise OpeningShapeError("opened row width mismatch")
+        idx_b = idx_arr >> (log_global - log_batch)
+        ok = mk.verify_batch_np(root, dims, idx_b, rows_mats, paths)
+        if not ok.all():
+            raise InvalidOpeningArgument(
+                f"query {int(np.argmin(ok))}: bad input Merkle proof"
+            )
+        rows_by_round.append(rows_mats)
+
+    # 3b. Reduced openings per height at every query point, vectorized.
+    ro_val: Dict[int, np.ndarray] = {}
+    counters: Dict[tuple, int] = {}
+    inv_xz_cache: Dict[tuple, np.ndarray] = {}
+    x_cache: Dict[int, np.ndarray] = {}
+    alpha_pows_arr = np.asarray(alpha_pows, dtype=np.uint64)  # (A+1, 4)
+    for (root, mats), rows in zip(rounds, rows_by_round):
+        for (domain, pts), row in zip(mats, rows):
+            log_h = domain.log_n + LOG_BLOWUP
+            if log_h not in x_cache:
+                idx_h = idx_arr >> (log_global - log_h)
+                x_cache[log_h] = np.asarray(
+                    _lde_points_host(log_h), dtype=np.uint64
+                )[nt.bit_reversal_perm(log_h)[idx_h]]
+            x = x_cache[log_h]  # (Q,)
+            ro_val.setdefault(log_h, np.zeros((num_queries, 4), dtype=np.uint64))
+            row64 = row % u64p  # (Q, W)
+            for z, ys in pts:
+                c0 = counters.get((log_h, z), 0)
+                if len(ys) == 0:
+                    continue
+                ck = (log_h, z)
+                if ck not in inv_xz_cache:
+                    xz = np.broadcast_to(
+                        (u64p - np.asarray(z, dtype=np.uint64) % u64p) % u64p,
+                        (num_queries, 4),
+                    ).copy()
+                    xz[:, 0] = (xz[:, 0] + x) % u64p
+                    inv_xz_cache[ck] = efh.v_inv(xz)
+                inv_xz = inv_xz_cache[ck]
+                if len(ys) != row64.shape[1]:
+                    raise OpeningShapeError("opened value count mismatch")
+                ys_arr = np.asarray(ys, dtype=np.uint64) % u64p  # (W, 4)
+                diff = np.broadcast_to(
+                    (u64p - ys_arr) % u64p, (num_queries,) + ys_arr.shape
+                ).copy()  # (Q, W, 4)
+                diff[:, :, 0] = (diff[:, :, 0] + row64) % u64p
+                ap = alpha_pows_arr[c0 : c0 + len(ys)]  # (W, 4)
+                prod = efh.v_mul(ap[None, :, :], diff)  # (Q, W, 4)
+                acc = prod.sum(axis=1, dtype=np.uint64) % u64p  # (Q, 4)
+                ro_val[log_h] = (ro_val[log_h] + efh.v_mul(acc, inv_xz)) % u64p
+                counters[(log_h, z)] = c0 + len(ys)
+
+    # 3c. FRI fold chains, vectorized.
+    fri_check_queries_np(proof.fri, indices, betas, log_global, LOG_BLOWUP, ro_val)
+
+
+def _first_ys(pts):
+    return pts[0][1] if pts else []
