@@ -1,15 +1,33 @@
 """PyTorch/CUDA port of the zkvm_brainfuck_tpu STARK prover.
 
-Slice 1: the single-chip uni-STARK (`stark.uni`) over the Cpu chip, with
-hand-written CUDA kernels for the NTT block stages, the global NTT stage,
-the Poseidon2 leaf sponge and the batched Poseidon2 permutation
-(`csrc/`).  Field values are canonical KoalaBear elements in `torch.int32`.
+The entry point is `ProverClient` (sdk.py): setup -> prove -> verify of a
+Brainfuck guest over the machine's 8 chips, with LogUp, the preprocessed
+commit and the 4-round opening, as in the JAX package.  The single-chip
+uni-STARK (`stark.uni`) stays beside it.  Hand-written CUDA kernels
+(`csrc/`): the NTT block stages, the global NTT stage, the Poseidon2 leaf
+sponge, the batched Poseidon2 permutation, and the LogUp entries and
+running-sum scan.  Field values are canonical KoalaBear elements in
+`torch.int32`.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`, which
 selects each kernel's plain PyTorch version.  Importing this package never
 builds or loads a kernel.
 """
 
-from .device import resolve_device
+from .device import NoCudaDevice, resolve_device
+from .prover import BfCoreProof, BfProver, BfProvingKey, BfVerifyingKey
+from .sdk import BfProofWithPublicValues, BfVerificationError, CpuProver, Prover, ProverClient
 
-__all__ = ["resolve_device"]
+__all__ = [
+    "ProverClient",
+    "Prover",
+    "CpuProver",
+    "BfProver",
+    "BfProvingKey",
+    "BfVerifyingKey",
+    "BfCoreProof",
+    "BfProofWithPublicValues",
+    "BfVerificationError",
+    "NoCudaDevice",
+    "resolve_device",
+]

@@ -1,6 +1,11 @@
 """Conversions between the JAX package's objects and the port's, and a
 stable JSON encoding of the port's `UniProof`.
 
+The "weights carried across": a JAX `StarkProvingKey` / `StarkVerifyingKey`
+becomes the port's (preprocessed traces Montgomery -> canonical, then the
+port's own preprocessed commit, checked against the JAX root), and a JAX
+`ShardProof` becomes the port's and back.
+
 The JAX package is never imported here: its objects are read through their
 attributes as ints and numpy arrays, and objects of its classes are built
 from constructors the caller passes in.  The tests use this module to feed
@@ -17,8 +22,11 @@ import numpy as np
 import torch
 
 from .ops.field import as_field_tensor, np_from_monty
+from .stark import types as st
 from .stark.challenger import DuplexChallenger
+from .stark.domains import Domain
 from .stark.fri import FriProof
+from .stark.machine import StarkProvingKey, StarkVerifyingKey, commit_preprocessed
 from .stark.pcs import BatchOpening, PcsProof
 from .stark.uni import UniProof
 
@@ -71,8 +79,29 @@ def _ef_list(vals):
     return [tuple(int(x) for x in v) for v in vals]
 
 
+def _convert_pcs(p, PcsProof_, BatchOpening_, FriProof_):
+    fri = p.fri
+    return PcsProof_(
+        fri=FriProof_(
+            commit_phase_commits=[_u32(r) for r in fri.commit_phase_commits],
+            final_poly=tuple(int(x) for x in fri.final_poly),
+            pow_witness=int(fri.pow_witness),
+            query_commit_openings=[
+                [(_u32(row), _u32(path)) for row, path in layers]
+                for layers in fri.query_commit_openings
+            ],
+        ),
+        query_input_openings=[
+            [
+                BatchOpening_(opened_rows=[_u32(r) for r in bo.opened_rows], proof=_u32(bo.proof))
+                for bo in rounds
+            ]
+            for rounds in p.query_input_openings
+        ],
+    )
+
+
 def _convert_uni(p, UniProof_, PcsProof_, BatchOpening_, FriProof_):
-    fri = p.pcs_proof.fri
     return UniProof_(
         main_commit=[int(x) for x in p.main_commit],
         quotient_commit=[int(x) for x in p.quotient_commit],
@@ -80,26 +109,7 @@ def _convert_uni(p, UniProof_, PcsProof_, BatchOpening_, FriProof_):
         main_next=_ef_list(p.main_next),
         quotient=[_ef_list(ch) for ch in p.quotient],
         log_degree=int(p.log_degree),
-        pcs_proof=PcsProof_(
-            fri=FriProof_(
-                commit_phase_commits=[_u32(r) for r in fri.commit_phase_commits],
-                final_poly=tuple(int(x) for x in fri.final_poly),
-                pow_witness=int(fri.pow_witness),
-                query_commit_openings=[
-                    [(_u32(row), _u32(path)) for row, path in layers]
-                    for layers in fri.query_commit_openings
-                ],
-            ),
-            query_input_openings=[
-                [
-                    BatchOpening_(
-                        opened_rows=[_u32(r) for r in bo.opened_rows], proof=_u32(bo.proof)
-                    )
-                    for bo in rounds
-                ]
-                for rounds in p.pcs_proof.query_input_openings
-            ],
-        ),
+        pcs_proof=_convert_pcs(p.pcs_proof, PcsProof_, BatchOpening_, FriProof_),
     )
 
 
@@ -111,6 +121,86 @@ def uni_proof_from_jax(p) -> UniProof:
 def uni_proof_to_jax(p: UniProof, UniProof_, PcsProof_, BatchOpening_, FriProof_):
     """The port's `UniProof` -> an object of the given (JAX) classes."""
     return _convert_uni(p, UniProof_, PcsProof_, BatchOpening_, FriProof_)
+
+
+# ---------------------------------------------------------------------------
+# Machine proofs and keys
+# ---------------------------------------------------------------------------
+
+# The classes a shard proof is built from, by name: the port's here; the
+# caller passes the JAX package's for the other direction.
+PORT_PROOF_CLASSES = {
+    "ShardProof": st.ShardProof,
+    "ShardCommitment": st.ShardCommitment,
+    "ChipOpenedValues": st.ChipOpenedValues,
+    "AirOpenedValues": st.AirOpenedValues,
+    "PcsProof": PcsProof,
+    "BatchOpening": BatchOpening,
+    "FriProof": FriProof,
+}
+
+
+def _convert_shard(sp, C):
+    air = lambda a: C["AirOpenedValues"](local=_ef_list(a.local), next=_ef_list(a.next))  # noqa: E731
+    return C["ShardProof"](
+        commitment=C["ShardCommitment"](
+            main_commit=[int(x) for x in sp.commitment.main_commit],
+            permutation_commit=[int(x) for x in sp.commitment.permutation_commit],
+            quotient_commit=[int(x) for x in sp.commitment.quotient_commit],
+        ),
+        opened_values=[
+            C["ChipOpenedValues"](
+                preprocessed=air(c.preprocessed),
+                main=air(c.main),
+                permutation=air(c.permutation),
+                quotient=[_ef_list(ch) for ch in c.quotient],
+                cumulative_sum=tuple(int(x) for x in c.cumulative_sum),
+                log_degree=int(c.log_degree),
+            )
+            for c in sp.opened_values
+        ],
+        opening_proof=_convert_pcs(sp.opening_proof, C["PcsProof"], C["BatchOpening"], C["FriProof"]),
+        chip_ordering={str(k): int(v) for k, v in sp.chip_ordering.items()},
+    )
+
+
+def shard_proof_from_jax(sp) -> st.ShardProof:
+    """A JAX `ShardProof` (read through its attributes) -> the port's."""
+    return _convert_shard(sp, PORT_PROOF_CLASSES)
+
+
+def shard_proof_to_jax(sp: st.ShardProof, classes: dict):
+    """The port's `ShardProof` -> one built from `classes` (the JAX
+    package's, keyed as PORT_PROOF_CLASSES)."""
+    return _convert_shard(sp, classes)
+
+
+def verifying_key_from_jax(vk) -> StarkVerifyingKey:
+    return StarkVerifyingKey(
+        commit=[int(x) for x in vk.commit],
+        chip_information=[
+            (str(name), Domain(int(d.log_n), int(d.shift)), (int(h), int(w)))
+            for name, d, (h, w) in vk.chip_information
+        ],
+        chip_ordering={str(k): int(v) for k, v in vk.chip_ordering.items()},
+    )
+
+
+def proving_key_from_jax(pk, device=None) -> StarkProvingKey:
+    """A JAX `StarkProvingKey` -> the port's on `device`: its preprocessed
+    traces as canonical numpy (from Montgomery form), committed again by the
+    port; raises if the port's root differs from the JAX package's."""
+    order = sorted(pk.chip_ordering.items(), key=lambda kv: kv[1])
+    named = [
+        (name, bool(pk.local_only[i]), np_from_monty(np.asarray(pk.traces[i]).astype(np.uint32)))
+        for name, i in order
+    ]
+    port_pk, _vk = commit_preprocessed(named, device)
+    if [int(x) for x in port_pk.commit] != [int(x) for x in pk.commit]:
+        raise ValueError("the port's preprocessed commitment differs from the JAX package's")
+    if port_pk.chip_ordering != dict(pk.chip_ordering):
+        raise ValueError("the port's preprocessed chip ordering differs from the JAX package's")
+    return port_pk
 
 
 # ---------------------------------------------------------------------------

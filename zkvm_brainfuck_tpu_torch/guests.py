@@ -1,4 +1,7 @@
-"""Guest programs used by the port's tests, golden fixture and chip smoke run."""
+"""Guest programs used by the port's tests, golden fixtures and chip smoke
+run: the five guests of the JAX package's test_artifacts.py (reference
+crates/test-artifacts/guests/*.bf), the uni-STARK golden guest, and the
+bench guest."""
 
 from __future__ import annotations
 
@@ -23,3 +26,33 @@ def bench_guest(log2_cycles: int) -> str:
     rest = target - 1 - unit_cycles * m
     q, r = divmod(rest, 2)
     return unit * m + "+-" * q + "+" * r + "."
+
+
+# Reads n, prints fib-style multiply/add result (README's multiplication demo):
+FIBO_BF = ",>+>+<<[->>[->+>+<<]<[->>+<<]>>[-<+>]>[-<<<+>>>]<<<<]>>."
+
+HELLO_BF = (
+    ">++++++++[<+++++++++>-]<.>++++[<+++++++>-]<+.+++++++..+++."
+    ">>++++++[<+++++++>-]<+"
+)
+
+MOVE_BF = ">>>>++.<<<<."
+
+LOOP_BF = "+++++[-]."
+
+PRINTA_BF = """+++++ +++++
++++++ +++++
++++++ +++++
++++++ +++++
++++++ +++++
++++++ +++++
++++++
+."""
+
+ALL = {
+    "fibo": FIBO_BF,
+    "hello": HELLO_BF,
+    "move": MOVE_BF,
+    "loop": LOOP_BF,
+    "printa": PRINTA_BF,
+}

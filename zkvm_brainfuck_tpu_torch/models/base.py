@@ -10,12 +10,32 @@ dependencies, and evaluates its constraints through the polymorphic builder
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.record import ExecutionRecord
 from ..stark.layout import Layout
+
+
+def next_power_of_two(n: int, minimum: int = 16) -> int:
+    """Reference utils/mod.rs:47-53 (min height 16)."""
+    if n <= minimum:
+        return minimum
+    return 1 << (n - 1).bit_length()
+
+
+def column(a: np.ndarray, device) -> torch.Tensor:
+    """A host record column as an int64 tensor on `device`."""
+    return torch.from_numpy(np.ascontiguousarray(a).astype(np.int64)).to(device)
+
+
+def pad_rows(cols: Dict[str, torch.Tensor], n: int, padded: int) -> Dict[str, torch.Tensor]:
+    """Zero-pad every column tensor from n to `padded` rows."""
+    if padded == n:
+        return cols
+    return {k: torch.nn.functional.pad(v, (0, padded - n)) for k, v in cols.items()}
 
 
 @dataclass
@@ -62,6 +82,10 @@ class ChipAir:
 
     def byte_dependencies(self, record: ExecutionRecord, out: ByteDeps, device=None) -> None:
         """Contribute u8/u16 range-check streams (generate_dependencies)."""
+
+    def generate_preprocessed(self, program, device=None) -> Optional[torch.Tensor]:
+        """(rows, preprocessed width) canonical int32 tensor, or None."""
+        return None
 
     def eval(self, b) -> None:
         """Constraints + lookup messages over a builder."""

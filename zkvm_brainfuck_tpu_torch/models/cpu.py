@@ -10,7 +10,6 @@ accesses (clk+1 read/io, clk+2 ALU write) through the Memory argument.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..core.record import ExecutionRecord
@@ -18,7 +17,7 @@ from ..device import resolve_device
 from ..stark.layout import Layout
 from ..stark.lookup import LookupKind
 from . import operations as op
-from .base import ByteDeps, ChipAir
+from .base import ByteDeps, ChipAir, column, pad_rows
 
 INSTRUCTION_COLS = Layout([("opcode", 1), ("op_a", 4)])
 
@@ -64,9 +63,7 @@ class CpuChip(ChipAir):
         """Column tensors (int64, canonical) of the executed cycles."""
         c = record.cpu
         n = record.num_cycles
-
-        def col(a):
-            return torch.from_numpy(a.astype(np.int64)).to(device)
+        col = lambda a: column(a, device)  # noqa: E731
 
         clk = 2 * torch.arange(n, dtype=torch.int64, device=device)
         opcode = col(c.opcode)
@@ -131,9 +128,7 @@ class CpuChip(ChipAir):
         device = resolve_device(device)
         cols, n = self._columns(record, device)
         padded = self.num_rows(record)
-        if padded > n:
-            cols = {k: torch.nn.functional.pad(v, (0, padded - n)) for k, v in cols.items()}
-        return self.cols.assemble(cols, padded)
+        return self.cols.assemble(pad_rows(cols, n, padded), padded)
 
     def byte_dependencies(self, record: ExecutionRecord, out: ByteDeps, device=None) -> None:
         cols, n = self._columns(record, resolve_device(device))

@@ -19,7 +19,10 @@ import torch
 
 from .. import build
 
-KERNELS = ("ntt_block_stages", "ntt_stage", "poseidon2_hash_rows", "poseidon2_permute")
+KERNELS = (
+    "ntt_block_stages", "ntt_stage", "poseidon2_hash_rows", "poseidon2_permute",
+    "logup_entries", "logup_scan",
+)
 COUNTS: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _LOCK = threading.Lock()
@@ -41,6 +44,12 @@ _ARGTYPES = {
         "zkbf_p2_hash_rows": [_P, _P, _I, _P, _I, _I, _I, _P],
         # (states, out, n, out_cols, stream)
         "zkbf_p2_permute": [_P, _P, _I, _I, _P],
+    },
+    "logup.cu": {
+        # (main, w, prep, pw, n, desc, desc_len, chal, n_chal, out, n_inter, batch, nb, stream)
+        "zkbf_logup_entries": [_P, _I, _P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P],
+        # (perm, n, nb, totals, stream)
+        "zkbf_logup_scan": [_P, _I, _I, _P, _P],
     },
 }
 

@@ -1,15 +1,161 @@
-"""Quotient helpers shared with the JAX package's stark/quotient.py.
+"""Quotient polynomial evaluation on the disjoint coset (device).
 
-Only the constraint-axis sum is needed by the uni-STARK quotient; the
-machine quotient (permutation constraints, per-chip chunking) comes with
-the multi-table prover.
+Counterpart of the JAX package's stark/quotient.py (reference
+crates/stark/src/quotient.rs): run the chip's constraints (AIR, then the
+LogUp permutation constraints) over every coset point, fold them with the
+alpha powers of folder.rs:68-72, multiply by the inverse zeroifier, and
+return the EF4 quotient evaluations.
+
+Every constraint is evaluated over whole coset columns with the
+`TorchBackend` (eager torch); the next row is the coset column rolled by
+the blowup.  Constraint j of K gets the exact host weight alpha^(K-1-j)
+(the alpha-Horner fold written as a sum), and the base and extension
+constraints are stacked and folded with one weighted mod-p sum each.  The
+uni-STARK quotient (stark/uni.py) is the case without preprocessed or
+permutation columns.
 """
 
 from __future__ import annotations
 
+from typing import List
+
+import torch
+
+from ..ops import ext as xe
 from ..ops import field as xf
+from ..ops.field import I32, I64
+from . import ef_host as efh
+from .builder import HostEFBackend, NumericBuilder, TorchBackend, V
+from .chip import Chip
+from .domains import Domain, selectors_on_coset
+from .permutation import eval_permutation_constraints, host_beta_pows
+
+def constraint_ext_flags(chip: Chip) -> List[bool]:
+    """Per-constraint ext(True)/base(False) flags, in emission order (AIR,
+    then permutation constraints): one exact host-scalar pass, kept on the
+    chip."""
+    if "_constraint_ext_flags" not in chip.__dict__:
+        be = HostEFBackend
+        flags: List[bool] = []
+        one = efh.from_base(1)
+        b = NumericBuilder(
+            backend=be,
+            main_local=lambda i: V(be, one),
+            main_next=lambda i: V(be, one),
+            prep_local=(lambda i: V(be, one)) if chip.preprocessed_width else None,
+            prep_next=(lambda i: V(be, one)) if chip.preprocessed_width else None,
+            is_first_row=V(be, one),
+            is_last_row=V(be, one),
+            is_transition=V(be, one),
+            on_constraint=lambda v: flags.append(v.ext),
+            perm_local=[V(be, efh.ONE, True)] * chip.permutation_width,
+            perm_next=[V(be, efh.ONE, True)] * chip.permutation_width,
+            perm_challenges=[V(be, efh.ONE, True), V(be, efh.ONE, True)],
+            cumulative_sum=V(be, efh.ZERO, True),
+        )
+        chip.eval(b)
+        eval_permutation_constraints(chip, b)
+        chip.__dict__["_constraint_ext_flags"] = flags
+    return chip.__dict__["_constraint_ext_flags"]
 
 
 def _fsum_axis0(x):
     """Exact mod-p sum over the (small) constraint axis."""
     return xf.fsum_small(x, axis=0)
+
+
+def quotient_values(
+    chip: Chip,
+    trace_domain: Domain,
+    quotient_domain: Domain,
+    prep_lde,
+    main_lde: torch.Tensor,
+    perm_lde,
+    perm_challenges,
+    alpha: tuple,
+    cumulative_sum,
+) -> torch.Tensor:
+    """(Nq, 4) canonical int32 quotient values on the quotient coset.
+
+    *_lde: (Nq, width) canonical LDEs on the coset (prep_lde None for chips
+    without a preprocessed trace; perm_lde None evaluates the AIR alone, the
+    uni-STARK case).  perm_challenges (alpha', beta), alpha and
+    cumulative_sum are exact host EF4 tuples."""
+    device = main_lde.device
+    nq = quotient_domain.size
+    next_step = 1 << (quotient_domain.log_n - trace_domain.log_n)
+    sels = selectors_on_coset(
+        trace_domain.log_n, quotient_domain.log_n, quotient_domain.shift, device
+    )
+    be = TorchBackend
+
+    def columns(lde):
+        cols = lde.t().contiguous()  # (W, Nq): one contiguous row per column
+        return cols, torch.roll(cols, -next_step, dims=1)
+
+    main, main_next = columns(main_lde)
+    prep, prep_next = columns(prep_lde) if prep_lde is not None else (None, None)
+    perm_kw = {}
+    if perm_lde is not None:
+        perm, perm_nxt = columns(perm_lde)
+        planes = lambda m, i: tuple(m[4 * i + k] for k in range(4))  # noqa: E731
+        perm_kw = dict(
+            perm_local=[V(be, planes(perm, i), True) for i in range(perm.shape[0] // 4)],
+            perm_next=[V(be, planes(perm_nxt, i), True) for i in range(perm.shape[0] // 4)],
+            perm_challenges=[V(be, tuple(c), True) for c in perm_challenges],
+            cumulative_sum=V(be, tuple(int(x) for x in cumulative_sum), True),
+        )
+    collected = []
+    b = NumericBuilder(
+        backend=be,
+        main_local=lambda i: V(be, main[i]),
+        main_next=lambda i: V(be, main_next[i]),
+        prep_local=(lambda i: V(be, prep[i])) if prep is not None else None,
+        prep_next=(lambda i: V(be, prep_next[i])) if prep is not None else None,
+        is_first_row=V(be, sels["is_first_row"]),
+        is_last_row=V(be, sels["is_last_row"]),
+        is_transition=V(be, sels["is_transition"]),
+        on_constraint=lambda v: collected.append((v.p, v.ext)),
+        **perm_kw,
+    )
+    chip.eval(b)
+    if perm_lde is not None:
+        b.perm_beta_pows = [
+            V(be, tuple(int(x) for x in row), True)
+            for row in host_beta_pows(chip, perm_challenges[1])
+        ]
+        eval_permutation_constraints(chip, b)
+        assert [e for _p, e in collected] == constraint_ext_flags(chip), chip.name
+
+    k_total = len(collected)
+    pows = [efh.ONE]
+    for _ in range(k_total - 1):
+        pows.append(efh.mul(pows[-1], alpha))
+    weights = [pows[k_total - 1 - j] for j in range(k_total)]
+
+    def full(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(I32).expand(nq)
+        return torch.full((nq,), int(x), dtype=I32, device=device)
+
+    acc = xe.ezeros((nq,), device=device)
+    base = [(full(p), w) for (p, ext), w in zip(collected, weights) if not ext]
+    if base:
+        bstack = torch.stack([p for p, _w in base])  # (K_b, nq)
+        bw = torch.tensor([w for _p, w in base], dtype=I64, device=device)  # (K_b, 4)
+        acc = xe.eadd(
+            acc, tuple(_fsum_axis0(xf.fmul(bstack, bw[:, t][:, None])) for t in range(4))
+        )
+    ext = [(p, w) for (p, e), w in zip(collected, weights) if e]
+    if ext:
+        estack = tuple(torch.stack([full(p[t]) for p, _w in ext]) for t in range(4))
+        ew = torch.tensor([w for _p, w in ext], dtype=I64, device=device)
+        prod = xe.emul(estack, tuple(ew[:, t][:, None] for t in range(4)))
+        acc = xe.eadd(acc, tuple(_fsum_axis0(pl) for pl in prod))
+    return xe.to_array(xe.emul_base(acc, sels["inv_zeroifier"]))
+
+
+def split_quotient_chunks(quotient_domain: Domain, qvals: torch.Tensor, n_chunks: int):
+    """Split coset evals into per-subdomain chunk matrices (p3 split_evals):
+    chunk k = rows k::n_chunks, 4 base columns, on split_domains(n)[k]."""
+    return [qvals[k::n_chunks].reshape(-1, 4).contiguous() for k in range(n_chunks)]

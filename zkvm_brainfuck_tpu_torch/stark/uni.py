@@ -15,20 +15,16 @@ import time
 from dataclasses import dataclass
 from typing import Dict, List
 
-import torch
-
 from ..device import elapsed, resolve_device
-from ..ops import ext as xe
 from ..ops import field as xf
-from ..ops.field import I32, I64
 from . import ef_host as efh
-from .builder import HostEFBackend, NumericBuilder, TorchBackend, V
+from .builder import HostEFBackend, NumericBuilder, V
 from .challenger import DuplexChallenger
 from .chip import Chip
-from .domains import Domain, selectors_on_coset
+from .domains import Domain
 from .errors import VerificationFailure
 from .pcs import PcsProof, pcs_commit, pcs_open, pcs_verify
-from .quotient import _fsum_axis0
+from .quotient import quotient_values, split_quotient_chunks
 from .types import AirOpenedValues, ChipOpenedValues
 from .verifier import recompute_quotient
 
@@ -82,8 +78,8 @@ def uni_stark_prove(
 
     t0 = time.time()
     qdomain = tdomain.create_disjoint_domain(1 << (log_n + log_qd))
-    qvals = _uni_quotient(chip, tdomain, qdomain, data.ldes[0], alpha)
-    chunks = [qvals[k :: 1 << log_qd].contiguous() for k in range(1 << log_qd)]
+    qvals = quotient_values(chip, tdomain, qdomain, None, data.ldes[0], None, None, alpha, None)
+    chunks = split_quotient_chunks(qdomain, qvals, 1 << log_qd)
     timings["quotient"] = elapsed(t0, device)
 
     t0 = time.time()
@@ -114,61 +110,6 @@ def uni_stark_prove(
         log_degree=log_n,
         pcs_proof=pcs_proof,
     )
-
-
-def _uni_quotient(chip: Chip, tdomain, qdomain, main_lde: torch.Tensor, alpha_host):
-    """Quotient values on the qdomain coset: (nq, 4) canonical int32.
-
-    Every constraint is evaluated over whole coset columns with the
-    TorchBackend; constraint j of K gets weight alpha^(K-1-j) (the
-    alpha-Horner fold written as a sum), and the sum is divided by the
-    zeroifier."""
-    device = main_lde.device
-    nq = qdomain.size
-    next_step = 1 << (qdomain.log_n - tdomain.log_n)
-    sels = selectors_on_coset(tdomain.log_n, qdomain.log_n, qdomain.shift, device)
-    cols = main_lde.t().contiguous()  # (W, nq): one contiguous row per column
-    nxt = torch.roll(cols, -next_step, dims=1)
-    be = TorchBackend
-    collected = []
-    b = NumericBuilder(
-        backend=be,
-        main_local=lambda i: V(be, cols[i]),
-        main_next=lambda i: V(be, nxt[i]),
-        prep_local=None,
-        prep_next=None,
-        is_first_row=V(be, sels["is_first_row"]),
-        is_last_row=V(be, sels["is_last_row"]),
-        is_transition=V(be, sels["is_transition"]),
-        on_constraint=lambda v: collected.append((v.p, v.ext)),
-    )
-    chip.eval(b)
-    k_total = len(collected)
-    pows = [efh.ONE]
-    for _ in range(k_total - 1):
-        pows.append(efh.mul(pows[-1], alpha_host))
-    weights = [pows[k_total - 1 - j] for j in range(k_total)]
-
-    def full(x):
-        if isinstance(x, torch.Tensor):
-            return x.to(I32).expand(nq)
-        return torch.full((nq,), int(x), dtype=I32, device=device)
-
-    acc = xe.ezeros((nq,), device=device)
-    base = [(full(p), w) for (p, ext), w in zip(collected, weights) if not ext]
-    if base:
-        bstack = torch.stack([p for p, _w in base])  # (K_b, nq)
-        bw = torch.tensor([w for _p, w in base], dtype=I64, device=device)  # (K_b, 4)
-        acc = xe.eadd(
-            acc, tuple(_fsum_axis0(xf.fmul(bstack, bw[:, t][:, None])) for t in range(4))
-        )
-    ext = [(p, w) for (p, e), w in zip(collected, weights) if e]
-    if ext:
-        estack = tuple(torch.stack([full(p[t]) for p, _w in ext]) for t in range(4))
-        ew = torch.tensor([w for _p, w in ext], dtype=I64, device=device)
-        prod = xe.emul(estack, tuple(ew[:, t][:, None] for t in range(4)))
-        acc = xe.eadd(acc, tuple(_fsum_axis0(pl) for pl in prod))
-    return xe.to_array(xe.emul_base(acc, sels["inv_zeroifier"]))
 
 
 def uni_stark_verify(
