@@ -9,10 +9,10 @@ result line:
 1. device: the card's name and power limit (nvidia-smi).
 2. build: the CUDA kernels (csrc/*.cu, one nvcc each, in parallel) and the
    native guest executor.
-3. kernels: each of the six kernels against its plain PyTorch version on the
-   card, on the same random inputs at the shapes of the main path (bit-exact:
-   integer field arithmetic, tolerance 0), with CUDA-event times (median of
-   5 after a warm-up) and the bound of each launch.
+3. kernels: each of the seven kernels against its plain PyTorch version on
+   the card, on the same random inputs at the shapes of the main path
+   (bit-exact: integer field arithmetic, tolerance 0), with CUDA-event times
+   (median of 5 after a warm-up) and the bound of each launch.
 4. golden: the card-path uni-STARK proof of the golden guest at 84 queries
    must equal tests/golden/uni_cpu_<guest>_q84.json (made by the JAX
    package) byte for byte.
@@ -22,7 +22,7 @@ result line:
    tests/golden/transcript_printa_q84.json byte for byte.
 6. uni slice: execute the 2^20 - 1 cycle bench guest, generate its 2^20 x 31
    Cpu trace, uni-STARK prove at 84 queries, verify, and reject a tampered
-   proof; the four kernels of that path must have launched.
+   proof; the five kernels of that path must have launched.
 7. main path: ProverClient setup -> prove -> verify of the same guest over
    all 8 chips at 84 queries and 16 PoW bits; a tampered proof must be
    rejected with a typed error.  The launch counts are set to 0 just before
@@ -30,13 +30,16 @@ result line:
    each chip's rows and widths, the phase seconds and the peak device memory.
    A second, untimed prove records the shapes of each kernel's launches
    (for the per-prove bounds), of the LDEs and of the NTT tables they read;
-   the NTT launches must be those the LDE shapes require.
+   the NTT launches must be those the LDE shapes require, and the tree walk
+   must be one call for each commit the proof holds (main, permutation,
+   quotient and one per FRI commit phase).
 8. lde: the CUDA-event time of those LDEs back to back, against their
    bound; one LDE under torch.profiler must run the two NTT kernels only.
 9. profile: a warm main-path prove with the same key, timed alone, then one
    more under torch.profiler: the device busy share (device self time of all
    kernels and copies over the wall time), device time by kernel, and the
-   per-prove device ms and launches of each hand-written kernel.
+   per-prove device ms and launches of each hand-written kernel; the tree
+   walk may take at most 2 device launches a commit.
 
 The last two lines of standard output are the `kernels` JSON object (its
 launch counts are those of the main path, phase 7) and the `ok` JSON object.
@@ -89,6 +92,7 @@ REPLACES = {
     "ntt_block_stages": "zkvm_brainfuck_tpu/ops/ntt_pallas.py:50",
     "ntt_stage": "zkvm_brainfuck_tpu/ops/ntt.py:114",
     "poseidon2_hash_rows": "zkvm_brainfuck_tpu/ops/merkle.py:96",
+    "poseidon2_tree": "zkvm_brainfuck_tpu/ops/merkle.py:151",
     "poseidon2_permute": "zkvm_brainfuck_tpu/ops/poseidon2.py:279",
     "logup_entries": "zkvm_brainfuck_tpu/stark/permutation.py:77",
     "logup_scan": "zkvm_brainfuck_tpu/stark/permutation.py:215",
@@ -97,6 +101,7 @@ SOURCES = {
     "ntt_block_stages": "zkvm_brainfuck_tpu_torch/csrc/ntt.cu",
     "ntt_stage": "zkvm_brainfuck_tpu_torch/csrc/ntt.cu",
     "poseidon2_hash_rows": "zkvm_brainfuck_tpu_torch/csrc/poseidon2.cu",
+    "poseidon2_tree": "zkvm_brainfuck_tpu_torch/csrc/poseidon2.cu",
     "poseidon2_permute": "zkvm_brainfuck_tpu_torch/csrc/poseidon2.cu",
     "logup_entries": "zkvm_brainfuck_tpu_torch/csrc/logup.cu",
     "logup_scan": "zkvm_brainfuck_tpu_torch/csrc/logup.cu",
@@ -106,11 +111,13 @@ DEVICE_FUNCS = {
     "ntt_block_stages": ("block_stages_kernel",),
     "ntt_stage": ("stage_kernel",),
     "poseidon2_hash_rows": ("hash_rows_kernel",),
+    "poseidon2_tree": ("bulk_kernel", "tree_kernel"),
     "poseidon2_permute": ("permute_kernel",),
     "logup_entries": ("entries_kernel",),
     "logup_scan": ("scan_tiles_kernel", "scan_totals_kernel", "scan_carry_kernel"),
 }
-UNI_KERNELS = ("ntt_block_stages", "ntt_stage", "poseidon2_hash_rows", "poseidon2_permute")
+UNI_KERNELS = ("ntt_block_stages", "ntt_stage", "poseidon2_hash_rows", "poseidon2_tree",
+               "poseidon2_permute")
 GOLDEN_QUERIES, GOLDEN_POW_BITS = 84, 16
 TRANSCRIPT_SEGMENTS = [("S1 setup", 0, 15), ("S2 main commit", 15, 31), ("S3 LogUp", 31, 67),
                        ("S4 quotient", 67, 79), ("S5 open", 79, 1741)]
@@ -174,6 +181,7 @@ def launch_bounds():
     import torch
 
     from zkvm_brainfuck_tpu_torch.ops import logup as lu
+    from zkvm_brainfuck_tpu_torch.ops import merkle as mk
     from zkvm_brainfuck_tpu_torch.ops import ntt as nt
     from zkvm_brainfuck_tpu_torch.ops import poseidon2 as p2
 
@@ -197,6 +205,12 @@ def launch_bounds():
         n = states.shape[0]
         return bound(n * (16 + out_cols) * 4, n * P2_INSTR_PER_PERM)
 
+    def tree(plan, digests_by_height):
+        inject = dict(plan.inject_levels)
+        perms = sum((plan.max_h >> i) * (2 if i in inject else 1) for i in range(1, plan.log_max + 1))
+        read = plan.max_h + sum(h for _lvl, h in plan.inject_levels)
+        return bound((read + plan.flat_len) * 8 * 4, perms * P2_INSTR_PER_PERM)
+
     def entries(table, main, prep, chal):
         n = main.shape[0]
         pw = 0 if prep is None else prep.shape[1]
@@ -210,6 +224,7 @@ def launch_bounds():
         "ntt_block_stages": (nt, "ntt_block_stages", block_stages),
         "ntt_stage": (nt, "ntt_stage", stage),
         "poseidon2_hash_rows": (p2, "hash_rows", hash_rows),
+        "poseidon2_tree": (mk, "build_tree", tree),
         "poseidon2_permute": (p2, "permute", permute),
         "logup_entries": (lu, "logup_entries", entries),
         "logup_scan": (lu, "logup_scan", scan),
@@ -347,15 +362,23 @@ def phase_kernels(torch, dev, report):
                                           bound=bounds["poseidon2_hash_rows"](x, bitrev=True),
                                           shape=f"({n}, {w}) -> ({n}, 8)")
 
-    # poseidon2_permute: the first tree level of a 2^21-leaf tree.
+    tree_kernels(torch, rand, compare, kernels, bounds)
+
+    # poseidon2_permute: the grind's batch, 2^17 candidate states a launch
+    # (stark/challenger.py grind), its only caller on the main path; held at
+    # 2^20 states as well.
+    grind = rand(1 << 17, 16)
+    err = compare("poseidon2_permute grind batch", p2.permute(grind, out_cols=8),
+                  p2.permute_plain(grind)[:, :8])
     states = rand(n // 2, 16)
-    err = compare("poseidon2_permute", p2.permute(states, out_cols=8), p2.permute_plain(states)[:, :8])
+    err = max(err, compare("poseidon2_permute 2^20", p2.permute(states, out_cols=8),
+                           p2.permute_plain(states)[:, :8]))
     err = max(err, compare("poseidon2_permute 16", p2.permute(states), p2.permute_plain(states)))
-    ms = cuda_ms(torch, lambda: p2.permute(states, out_cols=8))
-    plain_ms = cuda_ms(torch, lambda: p2.permute_plain(states)[:, :8].contiguous(), reps=3)
+    ms = cuda_ms(torch, lambda: p2.permute(grind, out_cols=8))
+    plain_ms = cuda_ms(torch, lambda: p2.permute_plain(grind)[:, :8].contiguous(), reps=3)
     kernels["poseidon2_permute"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                        bound=bounds["poseidon2_permute"](states, out_cols=8),
-                                        shape=f"({n // 2}, 16) -> ({n // 2}, 8)")
+                                        bound=bounds["poseidon2_permute"](grind, out_cols=8),
+                                        shape=f"({1 << 17}, 16) -> ({1 << 17}, 8)")
     logup_kernels(torch, dev, rand, compare, kernels, bounds)
     torch.cuda.synchronize()
     for name, k in kernels.items():
@@ -363,6 +386,37 @@ def phase_kernels(torch, dev, report):
             f"plain {k['plain_ms']:.4f} ms, bound {k['bound'][0]:.4f} ms ({k['bound'][1]})")
     say(f"[kernels] ntt 2^21x31 (1 block pass + 1 stage pass): {report['ntt_2^21x31_ms']:.4f} ms")
     return kernels
+
+
+def tree_kernels(torch, rand, compare, kernels, bounds):
+    """poseidon2_tree against build_tree_plain, bit for bit: the main
+    commit's tree (2^21 leaves, inject levels at 2^20, 2^18, 2^17, 2^13 and
+    2^5, the LDE heights of the 8 chips), one FRI layer's tree (the digests
+    of a (2^20, 8) matrix), trees of 1, 2 and 16 leaves, and a 2^12-leaf tree
+    with an inject at every level.  Timed at the main commit's tree."""
+    from zkvm_brainfuck_tpu_torch.ops import merkle as mk
+    from zkvm_brainfuck_tpu_torch.ops import poseidon2 as p2
+
+    n = 1 << (SLICE_LOG + 1)
+    cases = [("main commit", (n, n >> 1, n >> 3, n >> 4, n >> 8, n >> 16)),
+             ("FRI layer (2^20, 8)", (n >> 1,)), ("1 leaf", (1,)), ("2 leaves", (2,)),
+             ("16 leaves", (16,)), ("inject at every level", tuple(1 << i for i in range(12, -1, -1)))]
+    err = 0
+    for name, heights in cases:
+        plan = mk.make_plan(heights)
+        if name.startswith("FRI"):
+            digests = {heights[0]: p2.hash_rows(rand(heights[0], 8))}
+        else:
+            digests = {h: rand(h, 8) for h in heights}
+        err = max(err, compare(f"poseidon2_tree {name}", mk.build_tree(plan, digests),
+                               mk.build_tree_plain(plan, digests)))
+        if name == "main commit":
+            main_plan, main_digests = plan, digests
+    ms = cuda_ms(torch, lambda: mk.build_tree(main_plan, main_digests))
+    plain_ms = cuda_ms(torch, lambda: mk.build_tree_plain(main_plan, main_digests), reps=3)
+    kernels["poseidon2_tree"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                     bound=bounds["poseidon2_tree"](main_plan, main_digests),
+                                     shape=f"{n} leaves, injects at {main_plan.inject_levels}")
 
 
 def logup_mults_per_row(table) -> int:
@@ -382,10 +436,11 @@ def logup_mults_per_row(table) -> int:
 
 
 def logup_kernels(torch, dev, rand, compare, kernels, bounds):
-    """logup_entries and logup_scan against their plain versions: the Cpu
-    chip at 2^20 rows (16 interactions, 31 columns), the Byte chip at 2^16
-    rows with its 2 preprocessed columns, and a Cpu height below one block
-    of either kernel; random traces and challenges from a numpy seed."""
+    """logup_entries and logup_scan against their plain versions: the 8
+    chips at their main-path heights (the Cpu chip at 2^20 rows: 16
+    interactions, 31 columns; Program and Byte with their preprocessed
+    columns) and a Cpu height below one block of either kernel; random
+    traces and challenges from a numpy seed.  Timed at the Cpu chip."""
     import numpy as np
 
     from zkvm_brainfuck_tpu_torch.models.machine_def import brainfuck_chips
@@ -397,7 +452,9 @@ def logup_kernels(torch, dev, rand, compare, kernels, bounds):
     rng = np.random.default_rng(20)
     chips = {a.name: Chip(a) for a in brainfuck_chips()}
     cases = []
-    for name, n in (("Cpu", 1 << SLICE_LOG), ("Byte", 1 << 16), ("Cpu", 100)):
+    for name, n in (("Cpu", 1 << SLICE_LOG), ("AddSub", 1 << SLICE_LOG), ("Jump", 1 << 19),
+                    ("Program", 1 << 17), ("Byte", 1 << 16), ("MemoryInstrs", 1 << 12),
+                    ("IO", 16), ("Memory", 16), ("Cpu", 100)):
         chip = chips[name]
         table = logup_table(chip)
         main = rand(n, chip.width)
@@ -586,6 +643,7 @@ def phase_main(torch, dev, report):
     """ProverClient setup -> prove -> verify of the 2^20 - 1 cycle guest."""
     from zkvm_brainfuck_tpu_torch import ProverClient, guests
     from zkvm_brainfuck_tpu_torch.ops import kernels as kn
+    from zkvm_brainfuck_tpu_torch.ops import merkle as mk
     from zkvm_brainfuck_tpu_torch.ops import ntt as nt
     from zkvm_brainfuck_tpu_torch.stark import pcs
     from zkvm_brainfuck_tpu_torch.stark.errors import VerificationFailure
@@ -646,7 +704,8 @@ def phase_main(torch, dev, report):
     # second prove with those functions recorded, so the timed one above
     # ran unwrapped.  Its launches are not in `counts`.
     targets = [(mod, fn, name, note) for name, (mod, fn, note) in launch_bounds().items()]
-    targets += [(pcs, "lde", "lde", lambda evals, log_n, shift: (tuple(evals.shape), log_n, shift)),
+    targets += [(mk, "make_plan", "commits", lambda heights: heights),
+                (pcs, "lde", "lde", lambda evals, log_n, shift: (tuple(evals.shape), log_n, shift)),
                 (nt, "twiddle_mont_dev", "twiddles", lambda log_n, inverse, device: (log_n, inverse)),
                 (nt, "scale_factors_dev", "factors", lambda log_n, shift, device: (log_n, shift))]
     with recording(targets) as calls:
@@ -670,9 +729,17 @@ def phase_main(torch, dev, report):
     got = {k: prove_counts[k] for k in want}
     if got != want:
         raise AssertionError(f"NTT launches per prove {got}, expected {want} from the LDE shapes")
+    # The commits a prove makes, from the proof: main, permutation and
+    # quotient, and one per FRI commit phase.
+    commits = 3 + len(sp.opening_proof.fri.commit_phase_commits)
+    plans = sum(1 for tag, _ in calls if tag == "commits")
+    if prove_counts["poseidon2_tree"] != commits or plans != commits:
+        raise AssertionError(f"{prove_counts['poseidon2_tree']} poseidon2_tree calls and {plans} "
+                             f"tree plans for the proof's {commits} commits")
     report["main"] = {"cycles": proof.proof.cycles, "queries": QUERIES, "pow_bits": GOLDEN_POW_BITS,
                       "phases_s": phases, "peak_bytes": peak, "launches": counts,
                       "launches_prove": prove_counts, "bound_ms_prove": prove_bounds,
+                      "commits_prove": commits,
                       "ntt_tables": {"twiddle_blobs": sorted(twiddles), "factor_tables": sorted(factors),
                                      "bytes": table_bytes},
                       "chips": chips, "proof_bytes": len(data)}
@@ -691,11 +758,13 @@ def phase_main(torch, dev, report):
     say(f"[main] launches (prove): {prove_counts}")
     say(f"[main] {len(lde_calls)} LDEs per prove: {want['ntt_block_stages']} ntt_block_stages and "
         f"{want['ntt_stage']} ntt_stage launches, as the LDE shapes require")
+    say(f"[main] {commits} commits per prove: {prove_counts['poseidon2_tree']} poseidon2_tree calls "
+        f"(the tree walk), {prove_counts['poseidon2_permute']} poseidon2_permute launches (the grind)")
     say("[main] bound per prove (ms, summed over the launches' shapes): " + ", ".join(
         f"{k} {v:.4f}" for k, v in prove_bounds.items()))
     say(f"[main] NTT tables a prove reads, cached on the card: {len(twiddles)} Montgomery twiddle "
         f"blobs and {len(factors)} row-factor tables, {table_bytes / 2**20:.3f} MiB")
-    return counts, client, pk, lde_calls, prove_bounds
+    return counts, client, pk, lde_calls, prove_bounds, commits
 
 
 def phase_lde(torch, dev, report, lde_calls):
@@ -754,9 +823,10 @@ def phase_lde(torch, dev, report, lde_calls):
         f"{ops}: no gather, cat, dtype copy or int64 product")
 
 
-def phase_profile(torch, dev, report, client, pk, prove_bounds):
+def phase_profile(torch, dev, report, client, pk, prove_bounds, commits):
     """A warm main-path prove with the same key under torch.profiler; device
-    busy share = sum of device self times of all kernels over the wall time."""
+    busy share = sum of device self times of all kernels over the wall time.
+    The tree walk may take at most 2 device launches per commit."""
     from torch.profiler import ProfilerActivity, profile
 
     def prove():
@@ -802,6 +872,9 @@ def phase_profile(torch, dev, report, client, pk, prove_bounds):
     if not rows:
         say("[profile] the profiler recorded no device time (busy share not measured)")
         return
+    tree = ours["poseidon2_tree"]["device_launches"]
+    if not 0 < tree <= 2 * commits:
+        raise AssertionError(f"the tree walk made {tree} device launches for {commits} commits")
     say(f"[profile] warm main-path prove {warm:.4f} s without the profiler, {wall:.4f} s under it; "
         f"device busy {busy_ms:.3f} ms ({100 * busy_ms / 1e3 / wall:.2f} % of the profiled wall, "
         f"{100 * busy_ms / 1e3 / warm:.2f} % of the unprofiled one) over {n_kernels} device events")
@@ -812,6 +885,7 @@ def phase_profile(torch, dev, report, client, pk, prove_bounds):
     for name, v in ours.items():
         say(f"[profile] {name:20s} {v['device_ms']:9.3f} ms per prove over "
             f"{v['device_launches']} device launches; bound {v['bound_ms']:.4f} ms per prove")
+    say(f"[profile] the tree walk: {tree} device launches for {commits} commits per prove")
 
 
 def main() -> int:
@@ -838,9 +912,9 @@ def main() -> int:
     phase_golden(torch, dev, report)
     phase_golden_main(torch, dev, report)
     phase_slice(torch, dev, report)
-    counts, client, pk, lde_calls, prove_bounds = phase_main(torch, dev, report)
+    counts, client, pk, lde_calls, prove_bounds, commits = phase_main(torch, dev, report)
     phase_lde(torch, dev, report, lde_calls)
-    phase_profile(torch, dev, report, client, pk, prove_bounds)
+    phase_profile(torch, dev, report, client, pk, prove_bounds, commits)
 
     line = {"kernels": [
         {

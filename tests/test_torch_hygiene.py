@@ -80,13 +80,34 @@ def test_plain_versions_are_not_counted_as_launches():
     """On CPU tensors a wrapper runs its plain version and counts no launch;
     the launch path accepts only contiguous int32 CUDA tensors."""
     from zkvm_brainfuck_tpu_torch.ops import kernels as kn
-    from zkvm_brainfuck_tpu_torch.ops import ntt, poseidon2
+    from zkvm_brainfuck_tpu_torch.ops import merkle, ntt, poseidon2
 
     before = dict(kn.COUNTS)
     x = torch.zeros((16, 16), dtype=torch.int32)
     poseidon2.permute(x)
-    poseidon2.hash_rows(x)
+    leaves = poseidon2.hash_rows(x)
+    merkle.build_tree(merkle.make_plan((16,)), {16: leaves})
     ntt.ntt_stage(ntt.ntt_block_stages(x, 4, 3), 4, 4)
     assert kn.COUNTS == before  # plain versions are not launches
     with pytest.raises(ValueError):
         kn.require_cuda_int32(x, "test")
+
+
+def test_every_kernel_is_registered_with_the_smoke_run():
+    """Each kernel of ops/kernels.py has its source, the TPU function it
+    replaces, its device functions and its bound in chip_smoke.py, and only
+    those kernels do."""
+    import chip_smoke
+    from zkvm_brainfuck_tpu_torch.ops import kernels as kn
+
+    names = set(kn.KERNELS)
+    assert "poseidon2_tree" in names and len(names) == 7
+    assert set(kn.COUNTS) == names
+    for table in (chip_smoke.SOURCES, chip_smoke.REPLACES, chip_smoke.DEVICE_FUNCS,
+                  chip_smoke.launch_bounds()):
+        assert set(table) == names
+    for name in names:
+        assert os.path.exists(os.path.join(ROOT, chip_smoke.SOURCES[name]))
+        path, line = chip_smoke.REPLACES[name].rsplit(":", 1)
+        with open(os.path.join(ROOT, path)) as fh:
+            assert int(line) <= len(fh.readlines())

@@ -4,6 +4,9 @@ on the CPU, and the permutation-constraint schedule.  The CUDA kernels
 themselves are held against the plain versions on the card
 (`test_logup_kernels_match_plain_on_the_card`, and chip_smoke.py)."""
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -143,6 +146,25 @@ def test_cpu_chip_fits_the_kernel():
     table = logup_table(chip)
     assert table.n_inter == lu.MAX_INTERACTIONS == 16
     assert (table.batch, table.nb, table.max_vals) == (2, 8, 7)
+
+
+@pytest.mark.parametrize(
+    "chip_name", ["Cpu", "Program", "AddSub", "Jump", "Memory", "Byte", "MemoryInstrs", "IO"])
+def test_every_chip_fits_the_lane_split(chip_name):
+    """ENTRY_LANES threads share a row, each taking ceil(NB / ENTRY_LANES)
+    whole batches: at most 16 / ENTRY_LANES interactions a lane, for every
+    chip."""
+    table = logup_table(_port_chip(chip_name))
+    per_lane = -(-table.nb // lu.ENTRY_LANES) * table.batch
+    assert min(table.n_inter, per_lane) <= lu.MAX_INTERACTIONS // lu.ENTRY_LANES
+
+
+def test_kernel_constants_match_the_source():
+    """The wrapper's MAX_INTERACTIONS and ENTRY_LANES are the kernel's."""
+    with open(os.path.join(os.path.dirname(lu.__file__), "..", "csrc", "logup.cu")) as fh:
+        src = fh.read()
+    assert int(re.search(r"constexpr int MAX_I = (\d+);", src).group(1)) == lu.MAX_INTERACTIONS
+    assert int(re.search(r"constexpr int ENTRY_LANES = (\d+);", src).group(1)) == lu.ENTRY_LANES
 
 
 def test_plain_scan_is_the_running_sum():

@@ -35,16 +35,41 @@
 //
 // What bounds it on the H100: integer operations.  Per row the Cpu chip
 // (I = 16, 31 main columns, up to 7 values per interaction) reads 124 bytes
-// and writes 144, and does about 16 x 7 x 4 value products, 15 + 2 x 15 EF4
-// products for the prefix and the unwind (16 Montgomery products each), the
-// EF4 inverse (3 EF4 products and ~60 base products for the Fermat power)
-// and 64 products for the terms: ~1,300 Montgomery products a row against
-// 268 bytes.  One thread owns one row; the EF4 state of its 16 interactions
-// (denominators and prefix products, 128 words) is indexed with compile-time
-// indices (the interaction loop is unrolled to MAX_I) so that it can live in
-// registers: `ptxas -v` for sm_90a reports 166 registers a thread and no
-// spill (PERF.md), so few warps fit on an SM.  The descriptor and the
-// challenges sit in shared memory, loaded once per block.
+// and writes 144, and needs about 1,100 Montgomery products (the value
+// products, the prefix and unwind EF4 products, one EF4 inverse, the terms;
+// chip_smoke.py logup_mults_per_row) against those 268 bytes.  A thread a
+// row holds the row's 16 denominators and prefix products in registers
+// (166 a thread, 12 warps an SM), and reading a 124-byte row column by
+// column makes a warp's load touch 32 rows 124 bytes apart: that design,
+// with 144-byte rows written 4 words at a time and the norm raised to p - 2
+// in 61 dependent steps, took 3.2x this bound on an NVIDIA H100 80GB HBM3 at
+// 700 W (PERF.md).
+//
+// Design:
+// - ENTRY_LANES (1, 2 or 4) adjacent threads share a row, each taking whole
+//   batches of its interactions (at most 16 / ENTRY_LANES): each forms its
+//   fingerprints and the prefix products of its share, a shuffle butterfly
+//   gives every lane the row's product and the product of the other lanes'
+//   shares, each lane inverts the row product (one EF4 inverse, repeated in
+//   every lane of the row) and unwinds its own share; the row sum is a
+//   shuffle sum.  Fewer interactions a thread, fewer registers, more warps.
+//   Chosen on an NVIDIA H100 80GB HBM3 at 700 W
+//   (zkvm_brainfuck_tpu_torch/probes/tree_logup_variants.py, PERF.md): 2
+//   lanes a row with the registers capped for 8 blocks of 128 threads an SM
+//   (64 registers and 156 bytes spilled, as ptxas reports; 1 lane needs 197
+//   uncapped, 4 lanes pay a redundant inverse in every lane and the
+//   divergence of unequal shares).  The probe builds copies of this file
+//   with other values of ENTRY_LANES and ENTRY_MIN_BLOCKS.
+// - The block's rows of main and prep are staged into shared memory with
+//   coalesced 16-byte loads (128 rows x 31 words of the Cpu chip: 15.9 KB),
+//   and its output rows are assembled in shared memory and stored as whole
+//   16-byte runs of the contiguous output block.
+// - Fingerprints are formed in Montgomery form (alpha + argument index per
+//   interaction, and beta^j * 2^64 mod p, prepared once a block), so no
+//   denominator needs a conversion; the Frobenius constants are Montgomery
+//   constants (c^2 = -1, c^3 = -c: two products form the three conjugates);
+//   the Fermat power p - 2 = (2^6 - 1) 2^25 + 2^24 - 1 is an addition chain
+//   of 48 squarings and 6 products whose two branches run side by side.
 //
 // logup_scan.  The inclusive mod-p prefix sum of the (N, 4) row sums down
 // the rows, in place in column NB: EF4 addition is componentwise, so each
@@ -67,16 +92,22 @@ namespace {
 
 constexpr int MAX_I = 16;          // interactions of the widest chip (Cpu)
 constexpr int ENTRY_THREADS = 128;
+constexpr int ENTRY_MIN_BLOCKS = 8;  // blocks an SM (caps the registers)
+constexpr int ENTRY_LANES = 2;       // threads a row: 1, 2 or 4
+static_assert(ENTRY_LANES == 1 || ENTRY_LANES == 2 || ENTRY_LANES == 4, "lanes");
 constexpr int SCAN_THREADS = 256;  // 8 warps
 constexpr int SCAN_ITEMS = 4;
 constexpr int SCAN_TILE = SCAN_THREADS * SCAN_ITEMS;
-constexpr uint32_t FROB_C = 2113994754u;  // 3^((p-1)/4): the Frobenius scale
+constexpr uint32_t ONE_M = 33554430u;       // 1 in Montgomery form (2^32 mod p)
+constexpr uint32_t FROB_C1_M = 2063729671u;  // c = 3^((p-1)/4), Montgomery form; c^2 = -1
+constexpr unsigned FULL = 0xffffffffu;
 
 struct E4 {
   uint32_t c[4];
 };
 
 __device__ __forceinline__ uint32_t x3(uint32_t a) { return kb::add(kb::add(a, a), a); }
+__device__ __forceinline__ uint32_t neg(uint32_t a) { return kb::sub(0u, a); }
 
 // Product in EF4 of two Montgomery-form values (x^4 = 3).
 __device__ __forceinline__ E4 emul(const E4& a, const E4& b) {
@@ -97,126 +128,229 @@ __device__ __forceinline__ E4 emul(const E4& a, const E4& b) {
   return r;
 }
 
+__device__ __forceinline__ uint32_t sqn(uint32_t x, int n) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) x = kb::mont_mul(x, x);
+  return x;
+}
+
+// x^(p-2) (Montgomery form): p - 2 = (2^6 - 1) * 2^25 + 2^24 - 1.
+__device__ __forceinline__ uint32_t fermat_inv(uint32_t x) {
+  using kb::mont_mul;
+  const uint32_t e3 = mont_mul(sqn(x, 1), x);      // 2^2 - 1
+  const uint32_t e7 = mont_mul(sqn(e3, 1), x);     // 2^3 - 1
+  const uint32_t e63 = mont_mul(sqn(e7, 3), e7);   // 2^6 - 1
+  const uint32_t e12 = mont_mul(sqn(e63, 6), e63);  // 2^12 - 1
+  const uint32_t e24 = mont_mul(sqn(e12, 12), e12);  // 2^24 - 1
+  return mont_mul(sqn(e63, 25), e24);
+}
+
 // Inverse in EF4 of a nonzero Montgomery-form value: the product b of the
 // three conjugates s(a) s^2(a) s^3(a), with s(a)_i = a_i c^i, over the norm
-// a * b, which lies in the base field; the norm is inverted by Fermat.
-__device__ E4 einv(const E4& a) {
-  const uint32_t c1 = kb::to_mont(FROB_C);
-  const uint32_t c2 = kb::mont_mul(c1, c1);
-  const uint32_t c3 = kb::mont_mul(c2, c1);
-  E4 s1 = {{a.c[0], kb::mont_mul(a.c[1], c1), kb::mont_mul(a.c[2], c2), kb::mont_mul(a.c[3], c3)}};
-  E4 s2 = {{a.c[0], kb::mont_mul(a.c[1], c2), a.c[2], kb::mont_mul(a.c[3], c2)}};
-  E4 s3 = {{a.c[0], kb::mont_mul(a.c[1], c3), kb::mont_mul(a.c[2], c2), kb::mont_mul(a.c[3], c1)}};
-  E4 b = emul(emul(s1, s2), s3);
-  uint32_t norm = kb::add(kb::mont_mul(a.c[0], b.c[0]),
-                          x3(kb::add(kb::add(kb::mont_mul(a.c[1], b.c[3]), kb::mont_mul(a.c[2], b.c[2])),
-                                     kb::mont_mul(a.c[3], b.c[1]))));
-  // norm^(p-2), Montgomery form throughout
-  uint32_t r = kb::to_mont(1u), base = norm;
-  for (uint32_t e = kb::P - 2; e; e >>= 1) {
-    if (e & 1u) r = kb::mont_mul(r, base);
-    base = kb::mont_mul(base, base);
-  }
+// a * b, which lies in the base field.
+__device__ __forceinline__ E4 einv(const E4& a) {
+  const uint32_t a1c = kb::mont_mul(a.c[1], FROB_C1_M), a3c = kb::mont_mul(a.c[3], FROB_C1_M);
+  const E4 s1 = {{a.c[0], a1c, neg(a.c[2]), neg(a3c)}};
+  const E4 s2 = {{a.c[0], neg(a.c[1]), a.c[2], neg(a.c[3])}};
+  const E4 s3 = {{a.c[0], neg(a1c), neg(a.c[2]), a3c}};
+  const E4 b = emul(emul(s1, s2), s3);
+  const uint32_t norm =
+      kb::add(kb::mont_mul(a.c[0], b.c[0]),
+              x3(kb::add(kb::add(kb::mont_mul(a.c[1], b.c[3]), kb::mont_mul(a.c[2], b.c[2])),
+                         kb::mont_mul(a.c[3], b.c[1]))));
+  const uint32_t r = fermat_inv(norm);
   E4 out;
+#pragma unroll
   for (int k = 0; k < 4; ++k) out.c[k] = kb::mont_mul(b.c[k], r);
   return out;
 }
 
+__device__ __forceinline__ E4 shfl_xor4(const E4& a, int m) {
+  E4 r;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) r.c[k] = __shfl_xor_sync(FULL, a.c[k], m);
+  return r;
+}
+
 // One affine form of the descriptor at `pos` (advanced past it), canonical.
-__device__ __forceinline__ uint32_t affine(const uint32_t* s, int& pos, const int32_t* mrow,
-                                           const int32_t* prow) {
+__device__ __forceinline__ uint32_t affine(const uint32_t* s, int& pos, const uint32_t* mrow,
+                                           const uint32_t* prow) {
   uint32_t acc = s[pos];
   const int nt = (int)s[pos + 1];
   pos += 2;
   for (int t = 0; t < nt; ++t) {
     const uint32_t col = s[pos + 1], wm = s[pos + 2];
-    const uint32_t x = (uint32_t)(s[pos] ? prow[col] : mrow[col]);
+    const uint32_t x = s[pos] ? prow[col] : mrow[col];
     acc = kb::add(acc, kb::mont_mul(x, wm));  // x * w, canonical
     pos += 3;
   }
   return acc;
 }
 
-__global__ void __launch_bounds__(ENTRY_THREADS)
+// `count` words from global `src` to shared `dst` (16-byte aligned), with
+// 16-byte loads where `src` is 16-byte aligned.
+__device__ __forceinline__ void stage(uint32_t* dst, const int32_t* src, int count) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int vecs = count >> 2;
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+    for (int i = threadIdx.x; i < vecs; i += blockDim.x) d4[i] = __ldg(s4 + i);
+    done = vecs << 2;
+  }
+  for (int i = done + threadIdx.x; i < count; i += blockDim.x) dst[i] = (uint32_t)__ldg(src + i);
+}
+
+__host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
+
+// Shared memory of a block, in words: rows of main and prep, output rows,
+// descriptor, challenges, per-interaction bases and descriptor offsets.
+__host__ __device__ constexpr int entries_smem_words(int rows, int w, int pw, int nb, int desc_len,
+                                                     int n_chal) {
+  return round4(rows * w) + round4(rows * pw) + rows * (nb + 1) * 4 + round4(desc_len) +
+         4 * n_chal + 4 * MAX_I + MAX_I;
+}
+
+__global__ void __launch_bounds__(ENTRY_THREADS, ENTRY_MIN_BLOCKS)
 entries_kernel(const int32_t* __restrict__ main, int w, const int32_t* __restrict__ prep, int pw,
                int n, const int32_t* __restrict__ desc, int desc_len,
                const int32_t* __restrict__ chal, int n_chal, int32_t* __restrict__ out,
                int n_inter, int batch, int nb) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* s_desc = smem;               // desc_len words
-  uint32_t* s_chal = smem + desc_len;    // alpha (canonical), then beta^0.. (Montgomery)
+  constexpr int LANES = ENTRY_LANES;
+  constexpr int ROWS = ENTRY_THREADS / LANES;
+  constexpr int KL = MAX_I / LANES;  // interactions a lane can hold
+  extern __shared__ uint4 entries_smem[];
+  uint32_t* s_main = reinterpret_cast<uint32_t*>(entries_smem);
+  uint32_t* s_prep = s_main + round4(ROWS * w);
+  uint32_t* s_out = s_prep + round4(ROWS * pw);
+  uint32_t* s_desc = s_out + ROWS * (nb + 1) * 4;
+  uint32_t* s_beta = s_desc + round4(desc_len);  // alpha, then beta^j * 2^64 mod p
+  uint32_t* s_base = s_beta + 4 * n_chal;        // alpha + argument index, Montgomery
+  int* s_off = reinterpret_cast<int*>(s_base + 4 * MAX_I);
+
+  const size_t row0 = (size_t)blockIdx.x * ROWS;
+  const int nrows = (int)min((size_t)ROWS, (size_t)n - row0);
+  stage(s_main, main + row0 * w, nrows * w);
+  if (pw > 0) stage(s_prep, prep + row0 * pw, nrows * pw);
   for (int i = threadIdx.x; i < desc_len; i += blockDim.x) s_desc[i] = (uint32_t)desc[i];
   for (int i = threadIdx.x; i < 4 * n_chal; i += blockDim.x)
-    s_chal[i] = i < 4 ? (uint32_t)chal[i] : kb::to_mont((uint32_t)chal[i]);
+    s_beta[i] = i < 4 ? (uint32_t)chal[i] : kb::to_mont(kb::to_mont((uint32_t)chal[i]));
+  if (threadIdx.x == 0) {
+    int pos = 0;
+    for (int i = 0; i < n_inter; ++i) {
+      s_off[i] = pos;
+      const uint32_t arg = (uint32_t)desc[pos + 1];
+      const int nv = desc[pos + 2];
+      pos += 3;
+      for (int v = 0; v <= nv; ++v) pos += 2 + 3 * desc[pos + 1];
+      for (int k = 0; k < 4; ++k)
+        s_base[4 * i + k] = kb::to_mont(k == 0 ? kb::add((uint32_t)chal[0], arg) : (uint32_t)chal[k]);
+    }
+  }
   __syncthreads();
 
-  const size_t row = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= (size_t)n) return;
-  const int32_t* mrow = main + row * w;
-  const int32_t* prow = prep ? prep + row * pw : nullptr;
+  const int lane = threadIdx.x % LANES;
+  const int r = threadIdx.x / LANES;
+  const int rr = r < nrows ? r : 0;  // a lane past the last row computes on row 0, stores nothing
+  const uint32_t* mrow = s_main + rr * w;
+  const uint32_t* prow = s_prep + rr * pw;
+  const int nbl = (nb + LANES - 1) / LANES;  // batches a lane takes
+  const int i0 = lane * nbl * batch;
+  const int k = max(0, min(n_inter, i0 + nbl * batch) - i0);  // <= KL (checked by the launcher)
 
-  E4 den[MAX_I];       // denominators (Montgomery); later the terms (canonical)
-  uint32_t mult[MAX_I];  // +-m, canonical
+  E4 den[KL];         // denominators (Montgomery); later the terms (canonical)
+  uint32_t mult[KL];  // +-m, canonical
   uint32_t zero_mask = 0;
-  const uint32_t one_m = kb::to_mont(1u);
-  int pos = 0;
 #pragma unroll
-  for (int i = 0; i < MAX_I; ++i) {
-    if (i < n_inter) {
-      const uint32_t sign = s_desc[pos], arg = s_desc[pos + 1];
+  for (int kk = 0; kk < KL; ++kk) {
+    if (kk < k) {
+      const int i = i0 + kk;
+      int pos = s_off[i];
+      const uint32_t sign = s_desc[pos];
       const int nv = (int)s_desc[pos + 2];
       pos += 3;
-      uint32_t d[4] = {kb::add(s_chal[0], arg), s_chal[1], s_chal[2], s_chal[3]};
+      uint32_t d[4] = {s_base[4 * i], s_base[4 * i + 1], s_base[4 * i + 2], s_base[4 * i + 3]};
       for (int j = 0; j < nv; ++j) {
         const uint32_t v = affine(s_desc, pos, mrow, prow);
-        const uint32_t* bp = s_chal + 4 * (j + 2);  // beta^(j+1)
-        for (int k = 0; k < 4; ++k) d[k] = kb::add(d[k], kb::mont_mul(v, bp[k]));
+        const uint32_t* bp = s_beta + 4 * (j + 2);  // beta^(j+1) * 2^64
+#pragma unroll
+        for (int c = 0; c < 4; ++c) d[c] = kb::add(d[c], kb::mont_mul(v, bp[c]));
       }
       const uint32_t m = affine(s_desc, pos, mrow, prow);
-      mult[i] = sign ? m : kb::sub(0u, m);
+      mult[kk] = sign ? m : neg(m);
       const bool zero = (d[0] | d[1] | d[2] | d[3]) == 0u;
-      zero_mask |= (uint32_t)zero << i;
-      for (int k = 0; k < 4; ++k) den[i].c[k] = kb::to_mont(d[k]);
-      if (zero) den[i].c[0] = one_m;
+      zero_mask |= (uint32_t)zero << kk;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) den[kk].c[c] = d[c];
+      if (zero) den[kk].c[0] = ONE_M;
     }
   }
 
-  E4 pref[MAX_I], total;
+  const E4 one = {{ONE_M, 0u, 0u, 0u}};
+  E4 pref[KL], mine = one;  // mine: the product of this lane's share
 #pragma unroll
-  for (int i = 0; i < MAX_I; ++i) {
-    if (i < n_inter) {
-      pref[i] = i == 0 ? den[0] : emul(pref[i > 0 ? i - 1 : 0], den[i]);
-      total = pref[i];
+  for (int kk = 0; kk < KL; ++kk) {
+    if (kk < k) {
+      pref[kk] = kk == 0 ? den[0] : emul(pref[kk > 0 ? kk - 1 : 0], den[kk]);
+      mine = pref[kk];
     }
   }
-  E4 inv = einv(total);
+  E4 inv;  // becomes the inverse of `mine`
+  if (LANES == 1) {
+    inv = einv(mine);
+  } else {
+    const E4 a = shfl_xor4(mine, 1);  // the other lane's share (LANES 2), or the pair's (LANES 4)
+    if (LANES == 2) {
+      inv = emul(einv(emul(mine, a)), a);
+    } else {
+      const E4 q = emul(mine, a);
+      const E4 b = shfl_xor4(q, 2);  // the other pair's product
+      inv = emul(einv(emul(q, b)), emul(a, b));
+    }
+  }
 #pragma unroll
-  for (int i = MAX_I - 1; i >= 0; --i) {
-    if (i < n_inter) {
-      E4 inv_i = i > 0 ? emul(inv, pref[i > 0 ? i - 1 : 0]) : inv;
-      if (i > 0) inv = emul(inv, den[i]);
-      const bool zero = (zero_mask >> i) & 1u;
-      for (int k = 0; k < 4; ++k) den[i].c[k] = zero ? 0u : kb::mont_mul(inv_i.c[k], mult[i]);
+  for (int kk = KL - 1; kk >= 0; --kk) {
+    if (kk < k) {
+      const E4 inv_i = kk > 0 ? emul(inv, pref[kk > 0 ? kk - 1 : 0]) : inv;
+      if (kk > 0) inv = emul(inv, den[kk]);
+      const bool zero = (zero_mask >> kk) & 1u;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) den[kk].c[c] = zero ? 0u : kb::mont_mul(inv_i.c[c], mult[kk]);
     }
   }
 
-  int32_t* orow = out + row * (size_t)(nb + 1) * 4;
+  uint32_t* orow = s_out + r * (nb + 1) * 4;
+  const bool store = r < nrows;
   uint32_t bsum[4] = {0u, 0u, 0u, 0u}, rsum[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-  for (int i = 0; i < MAX_I; ++i) {
-    if (i < n_inter) {
-      for (int k = 0; k < 4; ++k) bsum[k] = kb::add(bsum[k], den[i].c[k]);
-      if ((i + 1) % batch == 0 || i == n_inter - 1) {
-        const int b = i / batch;
-        for (int k = 0; k < 4; ++k) {
-          orow[4 * b + k] = (int32_t)bsum[k];
-          rsum[k] = kb::add(rsum[k], bsum[k]);
-          bsum[k] = 0u;
+  for (int kk = 0; kk < KL; ++kk) {
+    if (kk < k) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) bsum[c] = kb::add(bsum[c], den[kk].c[c]);
+      if ((kk + 1) % batch == 0 || kk == k - 1) {
+        const int b = (i0 + kk) / batch;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (store) orow[4 * b + c] = bsum[c];
+          rsum[c] = kb::add(rsum[c], bsum[c]);
+          bsum[c] = 0u;
         }
       }
     }
   }
-  for (int k = 0; k < 4; ++k) orow[4 * nb + k] = (int32_t)rsum[k];
+#pragma unroll
+  for (int m = 1; m < LANES; m <<= 1) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) rsum[c] = kb::add(rsum[c], __shfl_xor_sync(FULL, rsum[c], m));
+  }
+  if (store && lane == 0) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) orow[4 * nb + c] = rsum[c];
+  }
+  __syncthreads();
+  const uint4* so = reinterpret_cast<const uint4*>(s_out);
+  uint4* go = reinterpret_cast<uint4*>(out) + row0 * (nb + 1);
+  for (int i = threadIdx.x; i < nrows * (nb + 1); i += blockDim.x) go[i] = so[i];
 }
 
 __device__ __forceinline__ uint4 add4(uint4 a, uint4 b) {
@@ -310,23 +444,40 @@ scan_carry_kernel(uint4* perm, int n, int nb, const uint4* totals) {
   }
 }
 
+
 }  // namespace
 
 // Entries and row sums of an (n, nb+1, 4) permutation trace.  prep may be
 // null (pw = 0).  chal: (n_chal, 4) canonical, row 0 = alpha, row 1 + j =
-// beta^j.  n_inter <= 16.
+// beta^j.  n_inter <= 16; ENTRY_LANES threads share a row, each taking
+// ceil(nb / ENTRY_LANES) batches, which must hold at most 16 / ENTRY_LANES
+// interactions.  out must be 16-byte aligned.
 extern "C" int zkbf_logup_entries(const void* main, int w, const void* prep, int pw, int n,
                                   const void* desc, int desc_len, const void* chal, int n_chal,
                                   void* out, int n_inter, int batch, int nb, void* stream) {
   if (n < 1 || n_inter < 1 || n_inter > MAX_I || batch < 1 || nb != (n_inter + batch - 1) / batch ||
-      (pw > 0 && prep == nullptr) || n_chal < 2)
+      (pw > 0 && prep == nullptr) || n_chal < 2 || (reinterpret_cast<uintptr_t>(out) & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(uint32_t) * ((size_t)desc_len + 4 * (size_t)n_chal);
-  const int blocks = (n + ENTRY_THREADS - 1) / ENTRY_THREADS;
-  entries_kernel<<<blocks, ENTRY_THREADS, smem, (cudaStream_t)stream>>>(
-      static_cast<const int32_t*>(main), w, static_cast<const int32_t*>(prep), pw, n,
-      static_cast<const int32_t*>(desc), desc_len, static_cast<const int32_t*>(chal), n_chal,
-      static_cast<int32_t*>(out), n_inter, batch, nb);
+  const int per_lane = (nb + ENTRY_LANES - 1) / ENTRY_LANES * batch;
+  if ((per_lane < n_inter ? per_lane : n_inter) > MAX_I / ENTRY_LANES)
+    return (int)cudaErrorInvalidValue;
+  const int rows = ENTRY_THREADS / ENTRY_LANES;
+  const size_t smem = sizeof(uint32_t) * entries_smem_words(rows, w, pw, nb, desc_len, n_chal);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  const int blocks = (int)(((size_t)n + rows - 1) / rows);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int32_t* m = static_cast<const int32_t*>(main);
+  const int32_t* p = static_cast<const int32_t*>(prep);
+  const int32_t* d = static_cast<const int32_t*>(desc);
+  const int32_t* c = static_cast<const int32_t*>(chal);
+  int32_t* o = static_cast<int32_t*>(out);
+  cudaError_t e = cudaSuccess;
+  if (smem > 48 * 1024)
+    e = cudaFuncSetAttribute(entries_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    entries_kernel<<<blocks, ENTRY_THREADS, smem, s>>>(m, w, p, pw, n, d, desc_len, c, n_chal, o,
+                                                       n_inter, batch, nb);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

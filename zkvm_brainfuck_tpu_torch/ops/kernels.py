@@ -20,8 +20,8 @@ import torch
 from .. import build
 
 KERNELS = (
-    "ntt_block_stages", "ntt_stage", "poseidon2_hash_rows", "poseidon2_permute",
-    "logup_entries", "logup_scan",
+    "ntt_block_stages", "ntt_stage", "poseidon2_hash_rows", "poseidon2_tree",
+    "poseidon2_permute", "logup_entries", "logup_scan",
 )
 COUNTS: Dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -44,6 +44,8 @@ _ARGTYPES = {
         "zkbf_p2_hash_rows": [_P, _P, _I, _P, _I, _I, _I, _P],
         # (states, out, n, out_cols, stream)
         "zkbf_p2_permute": [_P, _P, _I, _I, _P],
+        # (leaves, flat, counters, n_counters, level_off, inject ptrs, log_max, stream)
+        "zkbf_p2_tree": [_P, _P, _P, _I, _P, _P, _I, _P],
     },
     "logup.cu": {
         # (main, w, prep, pw, n, desc, desc_len, chal, n_chal, out, n_inter, batch, nb, stream)

@@ -30,6 +30,7 @@ from . import kernels as kn
 from .field import I32, I64, P
 
 MAX_INTERACTIONS = 16  # csrc/logup.cu MAX_I
+ENTRY_LANES = 2  # csrc/logup.cu ENTRY_LANES: threads that share a row
 
 
 class LogupTable:
@@ -141,12 +142,16 @@ def _check_inputs(table: LogupTable, main, prep, chal):
 
 
 def logup_entries(table: LogupTable, main: torch.Tensor, prep, chal: torch.Tensor) -> torch.Tensor:
-    """(N, NB+1, 4) canonical int32: entries, then the row sums."""
+    """(N, NB+1, 4) canonical int32: entries, then the row sums.  On the
+    card, ENTRY_LANES threads share a row, each taking ceil(NB /
+    ENTRY_LANES) whole batches: at most 16 / ENTRY_LANES interactions."""
     _check_inputs(table, main, prep, chal)
     if not main.is_cuda:
         return logup_entries_plain(table, main, prep, chal)
-    if table.n_inter > MAX_INTERACTIONS:
-        raise ValueError(f"logup_entries: {table.n_inter} interactions > {MAX_INTERACTIONS}")
+    share = min(table.n_inter, -(-table.nb // ENTRY_LANES) * table.batch)
+    if table.n_inter > MAX_INTERACTIONS or share > MAX_INTERACTIONS // ENTRY_LANES:
+        raise ValueError(f"logup_entries: {table.n_inter} interactions in batches of "
+                         f"{table.batch} do not fit {ENTRY_LANES} lanes a row")
     kn.require_cuda_int32(main, "logup_entries main")
     kn.require_cuda_int32(chal, "logup_entries chal")
     if prep is not None:

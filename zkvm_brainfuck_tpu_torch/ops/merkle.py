@@ -12,12 +12,15 @@ batch of matrices with power-of-two heights:
 
 Every level lives in one flat (L, 8) int32 buffer at host-planned offsets
 (`TreePlan`), as in the JAX package, so the sibling index math is shared
-with it.  Each level is one `poseidon2.permute` launch over the (s, 16)
-view of the level below.
+with it.  `build_tree` walks the whole tree, compress-and-inject included,
+in at most two launches of the `poseidon2_tree` kernels (csrc/poseidon2.cu)
+on the card; `build_tree_plain`, the level loop over
+`poseidon2.permute_plain`, is its plain version.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Dict, List, Sequence, Tuple
@@ -25,6 +28,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import kernels as kn
 from . import poseidon2 as p2
 from .field import I32
 
@@ -85,9 +89,25 @@ def sponge_rows(mats: Sequence[torch.Tensor], bitrev: bool = False) -> torch.Ten
     return p2.hash_rows(list(mats), bitrev=bitrev)
 
 
-def build_tree(plan: TreePlan, digests_by_height: Dict[int, torch.Tensor]) -> torch.Tensor:
-    """Flat level buffer from per-height digest layers (committed order).
-    The root lives at row plan.level_off[plan.log_max]."""
+def _check_digests(plan: TreePlan, digests_by_height: Dict[int, torch.Tensor]) -> None:
+    """Raise unless every layer the walk reads is an (h, 8) int32 tensor on
+    one device: the digest layer at max_h and each injected height."""
+    need = [plan.max_h] + [h for _lvl, h in plan.inject_levels]
+    top = digests_by_height.get(plan.max_h)
+    for h in need:
+        d = digests_by_height.get(h)
+        if d is None:
+            raise ValueError(f"build_tree: no digest layer of height {h}")
+        if d.dim() != 2 or tuple(d.shape) != (h, 8) or d.dtype != I32:
+            raise ValueError(f"build_tree: the height-{h} layer must be ({h}, 8) int32, got "
+                             f"{tuple(d.shape)} {d.dtype}")
+        if d.device != top.device:
+            raise ValueError("build_tree: digest layers on different devices")
+
+
+def build_tree_plain(plan: TreePlan, digests_by_height: Dict[int, torch.Tensor]) -> torch.Tensor:
+    """Plain version of `build_tree`: one batch permutation per level, and
+    one more per compress-and-inject level."""
     inject = dict(plan.inject_levels)
     top = digests_by_height[plan.max_h]
     flat = torch.empty((plan.flat_len, 8), dtype=I32, device=top.device)
@@ -95,11 +115,41 @@ def build_tree(plan: TreePlan, digests_by_height: Dict[int, torch.Tensor]) -> to
     prev = top
     for i in range(1, plan.log_max + 1):
         s = plan.max_h >> i
-        out = p2.permute(prev.reshape(s, 16), out_cols=8)
+        out = p2.permute_plain(prev.reshape(s, 16))[:, :8]
         if i in inject:
-            out = p2.compress(out, digests_by_height[inject[i]])
+            out = p2.permute_plain(torch.cat([out, digests_by_height[inject[i]]], dim=1))[:, :8]
         flat[plan.level_off[i] : plan.level_off[i] + s] = out
         prev = out
+    return flat
+
+
+def build_tree(plan: TreePlan, digests_by_height: Dict[int, torch.Tensor]) -> torch.Tensor:
+    """Flat level buffer from per-height digest layers (committed order).
+    The root lives at row plan.level_off[plan.log_max].  On the card, the
+    `poseidon2_tree` kernel pair (at most two launches)."""
+    _check_digests(plan, digests_by_height)
+    top = digests_by_height[plan.max_h]
+    if not top.is_cuda:
+        return build_tree_plain(plan, digests_by_height)
+    layers = [top] + [digests_by_height[h] for _lvl, h in plan.inject_levels]
+    for d in layers:
+        kn.require_cuda_int32(d, "build_tree")
+    inject = dict(plan.inject_levels)
+    flat = torch.empty((plan.flat_len, 8), dtype=I32, device=top.device)
+    n_counters = (plan.max_h >> 13) + 8
+    counters = torch.empty(n_counters, dtype=I32, device=top.device)
+    offs = (ctypes.c_longlong * (plan.log_max + 1))(*plan.level_off)
+    ptrs = (ctypes.c_void_p * (plan.log_max + 1))(
+        *[digests_by_height[inject[i]].data_ptr() if i in inject else None
+          for i in range(plan.log_max + 1)])
+    kn.check(
+        kn.lib("poseidon2.cu").zkbf_p2_tree(
+            top.data_ptr(), flat.data_ptr(), counters.data_ptr(), n_counters,
+            ctypes.addressof(offs), ctypes.addressof(ptrs), plan.log_max, kn.stream(),
+        ),
+        "poseidon2_tree",
+    )
+    kn.COUNTS["poseidon2_tree"] += 1
     return flat
 
 
