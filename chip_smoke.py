@@ -9,10 +9,14 @@ result line:
 1. device: the card's name and power limit (nvidia-smi).
 2. build: the CUDA kernels (csrc/*.cu, one nvcc each, in parallel) and the
    native guest executor.
-3. kernels: each of the seven kernels against its plain PyTorch version on
+3. kernels: each of the six kernels against its plain PyTorch version on
    the card, on the same random inputs at the shapes of the main path
    (bit-exact: integer field arithmetic, tolerance 0), with CUDA-event times
-   (median of 5 after a warm-up) and the bound of each launch.
+   (median of 5 after a warm-up) and the bound of each launch.  The LogUp
+   kernel computes the running sum too (the TPU's separate scan, an entry
+   of its own in the kernels line with "fused_into"): it is held against
+   logup_entries_plain + logup_scan_plain over the whole trace and the
+   cumulative sum, and the running sum is timed beside torch.cumsum.
 4. golden: the card-path uni-STARK proof of the golden guest at 84 queries
    must equal tests/golden/uni_cpu_<guest>_q84.json (made by the JAX
    package) byte for byte.
@@ -30,9 +34,10 @@ result line:
    each chip's rows and widths, the phase seconds and the peak device memory.
    A second, untimed prove records the shapes of each kernel's launches
    (for the per-prove bounds), of the LDEs and of the NTT tables they read;
-   the NTT launches must be those the LDE shapes require, and the tree walk
+   the NTT launches must be those the LDE shapes require, the tree walk
    must be one call for each commit the proof holds (main, permutation,
-   quotient and one per FRI commit phase).
+   quotient and one per FRI commit phase), and LogUp one launch a chip, each
+   after a clear of its scratch.
 8. lde: the CUDA-event time of those LDEs back to back, against their
    bound; one LDE under torch.profiler must run the two NTT kernels only.
 9. profile: a warm main-path prove with the same key, timed alone, then one
@@ -40,6 +45,15 @@ result line:
    kernels and copies over the wall time), device time by kernel, and the
    per-prove device ms and launches of each hand-written kernel; the tree
    walk may take at most 2 device launches a commit.
+10. debug: a BF_DEBUG=1 prove of the 2^19 - 1 cycle bench guest (at 2^20
+   the host replay takes over a minute): the replay, which checks every chip's
+   permutation trace from the fused LogUp kernel row by row, must pass;
+   then a corrupted cell of the Cpu main trace and a corrupted row of the
+   Cpu running sum must each make it raise.
+11. profile trace: a `printa` prove with ZKBF_PROFILE set must write a
+   torch.profiler trace that names the fused LogUp kernel.
+12. scale: ProverClient prove and verify of the 2^22 - 1 cycle bench guest:
+   peak device memory and phase seconds.
 
 The last two lines of standard output are the `kernels` JSON object (its
 launch counts are those of the main path, phase 7) and the `ok` JSON object.
@@ -97,6 +111,9 @@ REPLACES = {
     "logup_entries": "zkvm_brainfuck_tpu/stark/permutation.py:77",
     "logup_scan": "zkvm_brainfuck_tpu/stark/permutation.py:215",
 }
+# Functions that have no kernel of their own: {function: the kernel that
+# computes it}.  They keep an entry in the kernels line.
+FUSED = {"logup_scan": "logup_entries"}
 SOURCES = {
     "ntt_block_stages": "zkvm_brainfuck_tpu_torch/csrc/ntt.cu",
     "ntt_stage": "zkvm_brainfuck_tpu_torch/csrc/ntt.cu",
@@ -114,7 +131,6 @@ DEVICE_FUNCS = {
     "poseidon2_tree": ("bulk_kernel", "tree_kernel"),
     "poseidon2_permute": ("permute_kernel",),
     "logup_entries": ("entries_kernel",),
-    "logup_scan": ("scan_tiles_kernel", "scan_totals_kernel", "scan_carry_kernel"),
 }
 UNI_KERNELS = ("ntt_block_stages", "ntt_stage", "poseidon2_hash_rows", "poseidon2_tree",
                "poseidon2_permute")
@@ -212,13 +228,13 @@ def launch_bounds():
         return bound((read + plan.flat_len) * 8 * 4, perms * P2_INSTR_PER_PERM)
 
     def entries(table, main, prep, chal):
+        """The fused kernel: the entries' products (each with an addition)
+        and the running sum's 4 additions a row; no bytes beyond the
+        entries' (the cumulative sum's 16 are left out)."""
         n = main.shape[0]
         pw = 0 if prep is None else prep.shape[1]
         return bound(n * (main.shape[1] + pw) * 4 + n * (table.nb + 1) * 16,
-                     n * logup_mults_per_row(table) * (MUL_INSTR + ADD_INSTR))
-
-    def scan(perm):
-        return bound(2 * perm.shape[0] * 16, perm.shape[0] * 4 * ADD_INSTR)
+                     n * (logup_mults_per_row(table) * (MUL_INSTR + ADD_INSTR) + 4 * ADD_INSTR))
 
     return {
         "ntt_block_stages": (nt, "ntt_block_stages", block_stages),
@@ -226,9 +242,14 @@ def launch_bounds():
         "poseidon2_hash_rows": (p2, "hash_rows", hash_rows),
         "poseidon2_tree": (mk, "build_tree", tree),
         "poseidon2_permute": (p2, "permute", permute),
-        "logup_entries": (lu, "logup_entries", entries),
-        "logup_scan": (lu, "logup_scan", scan),
+        "logup_entries": (lu, "logup_trace", entries),
     }
+
+
+def scan_bound(n):
+    """The running sum of n row sums on its own: read and write 16 bytes a
+    row, 4 additions a row."""
+    return bound(2 * n * 16, n * 4 * ADD_INSTR)
 
 
 @contextlib.contextmanager
@@ -436,11 +457,15 @@ def logup_mults_per_row(table) -> int:
 
 
 def logup_kernels(torch, dev, rand, compare, kernels, bounds):
-    """logup_entries and logup_scan against their plain versions: the 8
-    chips at their main-path heights (the Cpu chip at 2^20 rows: 16
-    interactions, 31 columns; Program and Byte with their preprocessed
-    columns) and a Cpu height below one block of either kernel; random
-    traces and challenges from a numpy seed.  Timed at the Cpu chip."""
+    """The fused LogUp kernel (logup_trace) against its plain composition,
+    logup_entries_plain then logup_scan_plain, over the whole trace and the
+    cumulative sum: the 8 chips at their main-path heights (the Cpu chip at
+    2^20 rows: 16 interactions, 31 columns; Program and Byte with their
+    preprocessed columns) and a Cpu height below one tile; random traces
+    and challenges from a numpy seed.  Timed at the Cpu chip, beside the
+    plain versions and, for the running sum, torch.cumsum of the int64
+    row-sum column (one PyTorch call that computes it, without the mod-p
+    reduction)."""
     import numpy as np
 
     from zkvm_brainfuck_tpu_torch.models.machine_def import brainfuck_chips
@@ -464,27 +489,40 @@ def logup_kernels(torch, dev, rand, compare, kernels, bounds):
         cases.append((name, n, table, main, prep, chal))
     err_e = err_s = 0
     for name, n, table, main, prep, chal in cases:
-        got = lu.logup_entries(table, main, prep, chal)
+        got, csum = lu.logup_trace(table, main, prep, chal)
         want = lu.logup_entries_plain(table, main, prep, chal)
-        err_e = max(err_e, compare(f"logup_entries {name} n={n}", got, want))
-        csum = lu.logup_scan(got)
         want_csum = lu.logup_scan_plain(want)
-        err_s = max(err_s, compare(f"logup_scan {name} n={n}", got, want),
-                    compare(f"logup_scan csum {name} n={n}", csum, want_csum))
+        err_e = max(err_e, compare(f"logup_trace entries {name} n={n}", got[:, :-1], want[:, :-1]))
+        err_s = max(err_s, compare(f"logup_trace phi {name} n={n}", got[:, -1], want[:, -1]),
+                    compare(f"logup_trace csum {name} n={n}", csum, want_csum))
+    say(f"[kernels] logup_trace bit-exact against logup_entries_plain + logup_scan_plain "
+        f"(whole trace and cumulative sum) at {len(cases)} shapes")
     name, n, table, main, prep, chal = cases[0]
     nb1 = table.nb + 1
-    ms = cuda_ms(torch, lambda: lu.logup_entries(table, main, prep, chal))
-    plain_ms = cuda_ms(torch, lambda: lu.logup_entries_plain(table, main, prep, chal), reps=3)
+
+    def plain():
+        perm = lu.logup_entries_plain(table, main, prep, chal)
+        return perm, lu.logup_scan_plain(perm)
+
+    ms = cuda_ms(torch, lambda: lu.logup_trace(table, main, prep, chal))
+    plain_ms = cuda_ms(torch, plain, reps=3)
     kernels["logup_entries"] = dict(max_abs_err=err_e, ms=ms, plain_ms=plain_ms,
                                     bound=bounds["logup_entries"](table, main, prep, chal),
                                     shape=f"Cpu ({n}, {main.shape[1]}), I={table.n_inter}, "
-                                          f"NB={table.nb} -> ({n}, {nb1}, 4)")
-    perm = lu.logup_entries(table, main, prep, chal)
-    ms = cuda_ms(torch, lambda: lu.logup_scan(perm))
-    plain_ms = cuda_ms(torch, lambda: lu.logup_scan_plain(perm), reps=3)
-    kernels["logup_scan"] = dict(max_abs_err=err_s, ms=ms, plain_ms=plain_ms,
-                                 bound=bounds["logup_scan"](perm),
-                                 shape=f"({n}, {nb1}, 4), column {table.nb}")
+                                          f"NB={table.nb} -> ({n}, {nb1}, 4) and (4,)")
+    perm = lu.logup_entries_plain(table, main, prep, chal)
+    sums = perm[:, table.nb].to(torch.int64)  # (n, 4), the row sums
+    scan_plain_ms = cuda_ms(torch, lambda: lu.logup_scan_plain(perm), reps=3)  # in place
+    library_ms = cuda_ms(torch, lambda: torch.cumsum(sums, 0))
+    sums_t = sums.t().contiguous()
+    library_t_ms = cuda_ms(torch, lambda: torch.cumsum(sums_t, 1))
+    kernels["logup_scan"] = dict(max_abs_err=err_s, ms=ms, plain_ms=scan_plain_ms,
+                                 bound=scan_bound(n), library_ms=library_ms,
+                                 shape=f"({n}, {nb1}, 4), column {table.nb}, inside logup_entries")
+    say(f"[kernels] the running sum at ({n}, 4): fused into logup_entries ({ms:.4f} ms a launch "
+        f"with the entries); on its own its bound is {scan_bound(n)[0]:.4f} ms, the plain version "
+        f"{scan_plain_ms:.4f} ms, torch.cumsum of the int64 column {library_ms:.4f} ms (of its "
+        f"transpose (4, {n}) along the rows: {library_t_ms:.4f} ms)")
 
 
 def phase_golden(torch, dev, report):
@@ -736,7 +774,14 @@ def phase_main(torch, dev, report):
     if prove_counts["poseidon2_tree"] != commits or plans != commits:
         raise AssertionError(f"{prove_counts['poseidon2_tree']} poseidon2_tree calls and {plans} "
                              f"tree plans for the proof's {commits} commits")
+    # LogUp: one fused launch a chip, each after one clear of its scratch.
+    logup_lib = kn.lib("logup.cu")
+    scratch = [4 * logup_lib.zkbf_logup_scratch_words(ch["rows"]) for ch in chips]
+    if prove_counts["logup_entries"] != len(chips):
+        raise AssertionError(f"{prove_counts['logup_entries']} LogUp launches for {len(chips)} chips")
     report["main"] = {"cycles": proof.proof.cycles, "queries": QUERIES, "pow_bits": GOLDEN_POW_BITS,
+                      "logup_prove": {"launches": prove_counts["logup_entries"],
+                                      "scratch_clears": len(scratch), "scratch_bytes": scratch},
                       "phases_s": phases, "peak_bytes": peak, "launches": counts,
                       "launches_prove": prove_counts, "bound_ms_prove": prove_bounds,
                       "commits_prove": commits,
@@ -756,6 +801,9 @@ def phase_main(torch, dev, report):
             say(f"[main]   {k:16s} {phases[k]:.4f} s")
     say(f"[main] launches (setup + prove): {counts}")
     say(f"[main] launches (prove): {prove_counts}")
+    say(f"[main] LogUp per prove: {prove_counts['logup_entries']} launches of the fused kernel "
+        f"(entries and running sum; no scan launch), each after a scratch clear "
+        f"(cudaMemsetAsync): {len(scratch)} clears, {sum(scratch)} bytes in all")
     say(f"[main] {len(lde_calls)} LDEs per prove: {want['ntt_block_stages']} ntt_block_stages and "
         f"{want['ntt_stage']} ntt_stage launches, as the LDE shapes require")
     say(f"[main] {commits} commits per prove: {prove_counts['poseidon2_tree']} poseidon2_tree calls "
@@ -885,7 +933,171 @@ def phase_profile(torch, dev, report, client, pk, prove_bounds, commits):
     for name, v in ours.items():
         say(f"[profile] {name:20s} {v['device_ms']:9.3f} ms per prove over "
             f"{v['device_launches']} device launches; bound {v['bound_ms']:.4f} ms per prove")
+    memsets = sum(c for k, _us, c in rows if "memset" in k.lower())
+    memset_ms = sum(us for k, us, _c in rows if "memset" in k.lower()) / 1e3
+    report["profile"]["memsets"] = {"count": memsets, "device_ms": memset_ms}
     say(f"[profile] the tree walk: {tree} device launches for {commits} commits per prove")
+    say(f"[profile] {memsets} memsets on the device per prove, {memset_ms:.3f} ms (the LogUp "
+        f"scratch clears among them)")
+
+
+# The BF_DEBUG replay's guest: 2^19 - 1 cycles.  The replay is host numpy
+# and grows with the rows (17.8 s at 2^18 on the H100's host, PERF.md), so
+# 2^20 would take over a minute.
+DEBUG_LOG = 19
+
+
+def phase_debug(torch, dev, report):
+    """BF_DEBUG=1 prove of the 2^DEBUG_LOG - 1 cycle bench guest on the card:
+    the replay (StarkMachine.debug_constraints: AIR constraints and lookup
+    balance on the host, every chip's permutation trace from the fused
+    LogUp kernel, the permutation constraints row by row, the cumulative
+    sums cancel) must pass; its host seconds are printed.  Then two
+    corruptions must each make the replay raise: one cell of the Cpu chip's
+    main trace (its pc at a row past the middle), and one row of the Cpu
+    chip's running-sum column as the fused kernel returns it."""
+    import numpy as np
+
+    from zkvm_brainfuck_tpu_torch import ProverClient, guests
+    from zkvm_brainfuck_tpu_torch.core.executor import execute
+    from zkvm_brainfuck_tpu_torch.core.program import Program
+    from zkvm_brainfuck_tpu_torch.ops.field import P
+    from zkvm_brainfuck_tpu_torch.stark import permutation
+
+    src = guests.bench_guest(DEBUG_LOG)
+    client = ProverClient()
+    machine = client.prover.prover.machine
+    replay = machine.debug_constraints
+    secs = []
+
+    def timed(*args, **kwargs):
+        t0 = time.time()
+        replay(*args, **kwargs)
+        secs.append(time.time() - t0)
+
+    pk, vk = client.setup(src)
+    machine.debug_constraints = timed
+    os.environ["BF_DEBUG"] = "1"
+    try:
+        t0 = time.time()
+        proof = client.prove(pk, b"").run()
+        wall = time.time() - t0
+    finally:
+        del os.environ["BF_DEBUG"]
+        del machine.debug_constraints
+    if len(secs) != 1:
+        raise AssertionError(f"BF_DEBUG=1: the replay ran {len(secs)} times")
+    client.verify(proof, vk)
+    say(f"[debug] BF_DEBUG=1 prove of {proof.proof.cycles} cycles (2^{DEBUG_LOG} - 1): the replay "
+        f"passed in {secs[0]:.4f} s on the host (prove + replay {wall:.4f} s)")
+
+    program = Program.from_source(src)
+    record = execute(program, b"")
+    rng = np.random.default_rng(8)
+    cpu = next(c for c in machine.chips if c.name == "Cpu")
+    pc = cpu.air.cols.offset_of("pc")
+    row = int(rng.integers(1 << (DEBUG_LOG - 1), 1 << DEBUG_LOG))
+    generate = cpu.air.generate_trace
+
+    def bad_trace(*args, **kwargs):
+        t = generate(*args, **kwargs)
+        t[row, pc] = (int(t[row, pc]) + 1) % P
+        return t
+
+    def bad_phi(chip, prep, main, alpha, beta, _inner=permutation.generate_permutation_trace):
+        perm, csum = _inner(chip, prep, main, alpha, beta)
+        if chip.name == "Cpu":
+            perm[row, -1, 1] = (int(perm[row, -1, 1]) + 1) % P
+        return perm, csum
+
+    caught = {}
+    for what, install, remove in (
+            (f"Cpu main trace, pc of row {row}", lambda: setattr(cpu.air, "generate_trace", bad_trace),
+             lambda: delattr(cpu.air, "generate_trace")),
+            (f"Cpu running sum (fused kernel), row {row}",
+             lambda: setattr(permutation, "generate_permutation_trace", bad_phi),
+             lambda: setattr(permutation, "generate_permutation_trace",
+                             bad_phi.__defaults__[0]))):
+        install()
+        t0 = time.time()
+        try:
+            replay(program, record)
+        except AssertionError as e:
+            caught[what] = (str(e)[:160], time.time() - t0)
+        else:
+            raise AssertionError(f"the BF_DEBUG replay missed a corrupted {what}")
+        finally:
+            remove()
+        say(f"[debug] corrupted {what}: the replay raised in {caught[what][1]:.4f} s: "
+            f"{caught[what][0]}")
+    report["debug"] = {"log_cycles": DEBUG_LOG, "cycles": proof.proof.cycles, "replay_s": secs[0],
+                       "prove_and_replay_s": wall,
+                       "corruptions": {k: {"error": v[0], "s": v[1]} for k, v in caught.items()}}
+
+
+def phase_profile_trace(torch, dev, report):
+    """A prove of `printa` with ZKBF_PROFILE=<dir> writes a torch.profiler
+    Chrome trace into <dir> that names the fused LogUp kernel."""
+    import shutil
+
+    from zkvm_brainfuck_tpu_torch import ProverClient, guests
+
+    out = os.path.join(ROOT, "build", "profile_check")
+    shutil.rmtree(out, ignore_errors=True)
+    client = ProverClient()
+    pk, vk = client.setup(guests.PRINTA_BF)
+    os.environ["ZKBF_PROFILE"] = out
+    try:
+        t0 = time.time()
+        proof = client.prove(pk, b"").run()
+        secs = time.time() - t0
+    finally:
+        del os.environ["ZKBF_PROFILE"]
+    client.verify(proof, vk)
+    files = sorted(os.listdir(out)) if os.path.isdir(out) else []
+    if len(files) != 1:
+        raise AssertionError(f"ZKBF_PROFILE: {len(files)} trace files in {out}")
+    path = os.path.join(out, files[0])
+    size = os.path.getsize(path)
+    with open(path) as fh:
+        names = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
+    shutil.rmtree(out)
+    hits = sorted(n for n in names if "entries_kernel" in n)
+    if not hits:
+        raise AssertionError("the ZKBF_PROFILE trace does not name the fused LogUp kernel")
+    report["profile_trace"] = {"prove_s": secs, "bytes": size, "events": len(names), "logup": hits}
+    say(f"[profile-trace] ZKBF_PROFILE prove of printa in {secs:.4f} s wrote {files[0]} "
+        f"({size} bytes), which names {func_name(hits[0])}")
+
+
+def phase_scale(torch, dev, report):
+    """One ProverClient prove and verify of the 2^22 - 1 cycle bench guest:
+    the peak device memory and the phase seconds (the evidence for or
+    against a low-memory mode on this card)."""
+    from zkvm_brainfuck_tpu_torch import ProverClient, guests
+
+    log_n = 22
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    client = ProverClient()
+    t0 = time.time()
+    pk, vk = client.setup(guests.bench_guest(log_n))
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    proof = client.prove(pk, b"").run()
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.time()
+    client.verify(proof, vk)
+    verify_s = time.time() - t0
+    if proof.proof.cycles != (1 << log_n) - 1:
+        raise AssertionError(f"2^{log_n} guest ran {proof.proof.cycles} cycles")
+    phases = dict(proof.proof.timings, setup=setup_s, verify=verify_s)
+    report["scale"] = {"log_cycles": log_n, "cycles": proof.proof.cycles, "peak_bytes": peak,
+                       "phases_s": phases}
+    say(f"[scale] 2^{log_n} - 1 cycles: proved and verified; peak device memory "
+        f"{peak / 2**30:.3f} GiB of {torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}")
+    say("[scale] phases (s): " + ", ".join(f"{k} {v:.4f}" for k, v in phases.items()))
 
 
 def main() -> int:
@@ -915,6 +1127,10 @@ def main() -> int:
     counts, client, pk, lde_calls, prove_bounds, commits = phase_main(torch, dev, report)
     phase_lde(torch, dev, report, lde_calls)
     phase_profile(torch, dev, report, client, pk, prove_bounds, commits)
+    del client, pk
+    phase_debug(torch, dev, report)
+    phase_profile_trace(torch, dev, report)
+    phase_scale(torch, dev, report)
 
     line = {"kernels": [
         {
@@ -922,13 +1138,14 @@ def main() -> int:
             "route": "cuda",
             "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": counts[name],
+            **({"fused_into": FUSED[name]} if name in FUSED else {}),
+            "launches": counts[FUSED.get(name, name)],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"],
             "plain_ms": k["plain_ms"],
             "bound_ms": k["bound"][0],
             "bound_by": k["bound"][1],
-            "library_ms": None,
+            "library_ms": k.get("library_ms"),
         }
         for name, k in kernels.items()
     ]}

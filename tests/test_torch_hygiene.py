@@ -79,8 +79,11 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
 def test_plain_versions_are_not_counted_as_launches():
     """On CPU tensors a wrapper runs its plain version and counts no launch;
     the launch path accepts only contiguous int32 CUDA tensors."""
+    from zkvm_brainfuck_tpu_torch.models.memory import MemoryChip
     from zkvm_brainfuck_tpu_torch.ops import kernels as kn
-    from zkvm_brainfuck_tpu_torch.ops import merkle, ntt, poseidon2
+    from zkvm_brainfuck_tpu_torch.ops import logup, merkle, ntt, poseidon2
+    from zkvm_brainfuck_tpu_torch.stark.chip import Chip
+    from zkvm_brainfuck_tpu_torch.stark.permutation import host_beta_pows, logup_table
 
     before = dict(kn.COUNTS)
     x = torch.zeros((16, 16), dtype=torch.int32)
@@ -88,6 +91,10 @@ def test_plain_versions_are_not_counted_as_launches():
     leaves = poseidon2.hash_rows(x)
     merkle.build_tree(merkle.make_plan((16,)), {16: leaves})
     ntt.ntt_stage(ntt.ntt_block_stages(x, 4, 3), 4, 4)
+    memory = Chip(MemoryChip())
+    chal = logup.challenge_matrix((1, 2, 3, 4), host_beta_pows(memory, (5, 6, 7, 8)), "cpu")
+    logup.logup_trace(logup_table(memory), torch.zeros((16, memory.width), dtype=torch.int32),
+                      None, chal)
     assert kn.COUNTS == before  # plain versions are not launches
     with pytest.raises(ValueError):
         kn.require_cuda_int32(x, "test")
@@ -96,17 +103,20 @@ def test_plain_versions_are_not_counted_as_launches():
 def test_every_kernel_is_registered_with_the_smoke_run():
     """Each kernel of ops/kernels.py has its source, the TPU function it
     replaces, its device functions and its bound in chip_smoke.py, and only
-    those kernels do."""
+    those kernels do; a function fused into a kernel (the LogUp running sum)
+    keeps its source and the TPU function it replaces in the kernels line."""
     import chip_smoke
     from zkvm_brainfuck_tpu_torch.ops import kernels as kn
 
     names = set(kn.KERNELS)
-    assert "poseidon2_tree" in names and len(names) == 7
+    assert "poseidon2_tree" in names and len(names) == 6
     assert set(kn.COUNTS) == names
-    for table in (chip_smoke.SOURCES, chip_smoke.REPLACES, chip_smoke.DEVICE_FUNCS,
-                  chip_smoke.launch_bounds()):
+    assert chip_smoke.FUSED == {"logup_scan": "logup_entries"}
+    for table in (chip_smoke.DEVICE_FUNCS, chip_smoke.launch_bounds()):
         assert set(table) == names
-    for name in names:
+    for table in (chip_smoke.SOURCES, chip_smoke.REPLACES):
+        assert set(table) == names | set(chip_smoke.FUSED)
+    for name in names | set(chip_smoke.FUSED):
         assert os.path.exists(os.path.join(ROOT, chip_smoke.SOURCES[name]))
         path, line = chip_smoke.REPLACES[name].rsplit(":", 1)
         with open(os.path.join(ROOT, path)) as fh:

@@ -1,7 +1,8 @@
 """The port's LogUp path (ops/logup.py through stark/permutation.py) against
-the JAX package's generate_permutation_trace, the kernel wrappers' contract
-on the CPU, and the permutation-constraint schedule.  The CUDA kernels
-themselves are held against the plain versions on the card
+the JAX package's generate_permutation_trace, the kernel wrapper's contract
+on the CPU, and the permutation-constraint schedule.  The fused CUDA kernel
+(entries and running sum in one launch) is held against the plain
+composition, logup_entries_plain then logup_scan_plain, on the card
 (`test_logup_kernels_match_plain_on_the_card`, and chip_smoke.py)."""
 
 import os
@@ -173,7 +174,7 @@ def test_plain_scan_is_the_running_sum():
     rows = perm[:, 2, :].numpy().astype(object)
     want = np.cumsum(rows, axis=0) % P
     entries = perm[:, :2, :].clone()
-    csum = lu.logup_scan(perm)
+    csum = lu.logup_scan_plain(perm)
     assert np.array_equal(perm[:, 2, :].numpy().astype(object), want)
     assert torch.equal(perm[:, :2, :], entries)
     assert [int(x) for x in csum] == [int(x) for x in want[-1]]
@@ -188,15 +189,16 @@ def test_wrappers_take_plain_versions_on_cpu_and_check_inputs():
     prep = torch.from_numpy(rng.integers(0, P, (n, chip.preprocessed_width)).astype(np.int32))
     chal = lu.challenge_matrix(_rand_ef(rng), host_beta_pows(chip, _rand_ef(rng)), "cpu")
     before = dict(kn.COUNTS)
-    perm = lu.logup_entries(table, main, prep, chal)
-    lu.logup_scan(perm)
+    perm, csum = lu.logup_trace(table, main, prep, chal)
     assert kn.COUNTS == before  # plain versions are not launches
+    want = lu.logup_entries_plain(table, main, prep, chal)
+    assert torch.equal(csum, lu.logup_scan_plain(want)) and torch.equal(perm, want)
     with pytest.raises(ValueError):
-        lu.logup_entries(table, main, None, chal)  # Byte reads its preprocessed columns
+        lu.logup_trace(table, main, None, chal)  # Byte reads its preprocessed columns
     with pytest.raises(ValueError):
-        lu.logup_entries(table, main, prep, chal[:-1])
+        lu.logup_trace(table, main, prep, chal[:-1])
     with pytest.raises(ValueError):
-        lu.logup_scan(perm[:, :1, :])
+        lu.logup_trace(table, main, prep[:-1], chal)  # prep's rows are not main's
 
 
 @pytest.mark.cuda
@@ -204,7 +206,7 @@ def test_logup_kernels_match_plain_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the LogUp kernels are CUDA only")
     rng = np.random.default_rng(7)
-    for name, n in (("Cpu", 5000), ("Byte", 1 << 16), ("Memory", 100)):
+    for name, n in (("Cpu", 5000), ("Cpu", 64 * 3000 + 7), ("Byte", 1 << 16), ("Memory", 100)):
         chip = _port_chip(name)
         table = logup_table(chip)
         main = torch.from_numpy(rng.integers(0, P, (n, chip.width)).astype(np.int32)).cuda()
@@ -213,7 +215,29 @@ def test_logup_kernels_match_plain_on_the_card():
             prep = torch.from_numpy(
                 rng.integers(0, P, (n, chip.preprocessed_width)).astype(np.int32)).cuda()
         chal = lu.challenge_matrix(_rand_ef(rng), host_beta_pows(chip, _rand_ef(rng)), "cuda")
-        got = lu.logup_entries(table, main, prep, chal)
+        got, csum = lu.logup_trace(table, main, prep, chal)
         want = lu.logup_entries_plain(table, main, prep, chal)
+        assert torch.equal(csum, lu.logup_scan_plain(want)), name
         assert torch.equal(got, want), name
-        assert torch.equal(lu.logup_scan(got), lu.logup_scan_plain(want)) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("chip_name,n", [("Cpu", 100), ("Cpu", 129), ("Memory", 16), ("Byte", 256),
+                                         ("Jump", 64)])
+def test_logup_trace_is_the_plain_composition(chip_name, n):
+    """On the CPU, logup_trace is logup_entries_plain then logup_scan_plain:
+    the entries, phi = the running sum of the row sums, and phi[N-1]."""
+    chip = _port_chip(chip_name)
+    table = logup_table(chip)
+    rng = np.random.default_rng(n)
+    main = torch.from_numpy(rng.integers(0, P, (n, chip.width)).astype(np.int32))
+    prep = None
+    if chip.preprocessed_width:
+        prep = torch.from_numpy(rng.integers(0, P, (n, chip.preprocessed_width)).astype(np.int32))
+    chal = lu.challenge_matrix(_rand_ef(rng), host_beta_pows(chip, _rand_ef(rng)), "cpu")
+    perm, csum = lu.logup_trace(table, main, prep, chal)
+    entries = lu.logup_entries_plain(table, main, prep, chal)
+    assert torch.equal(perm[:, :-1], entries[:, :-1])
+    rows = entries[:, -1, :].numpy().astype(object)
+    phi = np.cumsum(rows, axis=0) % P
+    assert np.array_equal(perm[:, -1, :].numpy().astype(object), phi)
+    assert [int(x) for x in csum] == [int(x) for x in phi[-1]]

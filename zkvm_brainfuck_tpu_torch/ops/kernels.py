@@ -21,7 +21,7 @@ from .. import build
 
 KERNELS = (
     "ntt_block_stages", "ntt_stage", "poseidon2_hash_rows", "poseidon2_tree",
-    "poseidon2_permute", "logup_entries", "logup_scan",
+    "poseidon2_permute", "logup_entries",
 )
 COUNTS: Dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -30,6 +30,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _ARGTYPES = {
     "ntt.cu": {
         # (x, out, tw, factors, rows_in, log_n, w, k, stream)
@@ -48,12 +49,16 @@ _ARGTYPES = {
         "zkbf_p2_tree": [_P, _P, _P, _I, _P, _P, _I, _P],
     },
     "logup.cu": {
-        # (main, w, prep, pw, n, desc, desc_len, chal, n_chal, out, n_inter, batch, nb, stream)
-        "zkbf_logup_entries": [_P, _I, _P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P],
-        # (perm, n, nb, totals, stream)
-        "zkbf_logup_scan": [_P, _I, _I, _P, _P],
+        # (main, w, prep, pw, n, desc, desc_len, chal, n_chal, out, csum, scratch,
+        #  scratch_words, n_inter, batch, nb, stream)
+        "zkbf_logup_trace": [_P, _I, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _L, _I, _I, _I, _P],
+        # (n) -> scratch words of zkbf_logup_trace
+        "zkbf_logup_scratch_words": [_I],
     },
 }
+
+
+_RESTYPES = {"zkbf_logup_scratch_words": _L}
 
 
 def reset_counts() -> None:
@@ -69,7 +74,7 @@ def lib(source: str) -> ctypes.CDLL:
             handle = ctypes.CDLL(path)
             for fn, argtypes in _ARGTYPES[source].items():
                 getattr(handle, fn).argtypes = argtypes
-                getattr(handle, fn).restype = ctypes.c_int
+                getattr(handle, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
             if source == "poseidon2.cu":
                 from .poseidon2 import montgomery_constants
 

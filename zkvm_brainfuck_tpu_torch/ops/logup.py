@@ -2,17 +2,20 @@
 
 Counterpart of the device half of the JAX package's stark/permutation.py:
 
-- `logup_entries(table, main, prep, chal)`: per row, the fingerprints
-  d_i = alpha + argument_index_i + sum_j beta^(j+1) value_ij of the chip's
-  interactions, the terms +-m_i / d_i, their sums per batch of B, and the
-  row sum.  Returns the (N, NB+1, 4) permutation trace with the entries in
-  columns 0..NB-1 and the row sums in column NB.
-- `logup_scan(perm)`: turns column NB into its inclusive running sum phi,
-  in place, and returns the cumulative sum phi[N-1] as a (4,) tensor.
+- `logup_trace(table, main, prep, chal) -> (perm, csum)`: per row, the
+  fingerprints d_i = alpha + argument_index_i + sum_j beta^(j+1) value_ij
+  of the chip's interactions, the terms +-m_i / d_i, their sums per batch
+  of B, and the row sum; then the inclusive running sum phi of the row
+  sums.  Returns the (N, NB+1, 4) permutation trace with the entries in
+  columns 0..NB-1 and phi in column NB, and the cumulative sum phi[N-1] as
+  a (4,) tensor.  On the card this is one kernel (the running sum is a
+  single-pass scan with decoupled look-back inside it); its plain version
+  is `logup_entries_plain` (entries, row sums in column NB) followed by
+  `logup_scan_plain` (column NB into phi, in place).
 
 `chal` is the (V+2, 4) canonical int32 matrix [alpha; beta^0; ...; beta^V],
-V the largest value count of the chip's interactions.  A wrapper launches
-its kernel for CUDA tensors and takes the plain version only for CPU
+V the largest value count of the chip's interactions.  The wrapper launches
+the kernel for CUDA tensors and takes the plain version only for CPU
 tensors.  The plain versions invert every denominator on its own (Fermat,
 through the norm); the kernel batch-inverts the denominators of a row; the
 inverse is unique, so both give the same bits.
@@ -127,61 +130,52 @@ def logup_scan_plain(perm: torch.Tensor) -> torch.Tensor:
 
 def _check_inputs(table: LogupTable, main, prep, chal):
     if main.dim() != 2:
-        raise ValueError(f"logup_entries: expected an (N, W) main trace, got {tuple(main.shape)}")
+        raise ValueError(f"logup_trace: expected an (N, W) main trace, got {tuple(main.shape)}")
     need_prep = any(is_prep for lk, _ in table.interactions
                     for aff in (*lk.values, lk.multiplicity) for is_prep, _i, _w in aff.terms)
     if need_prep and prep is None:
-        raise ValueError("logup_entries: the chip reads preprocessed columns; prep is missing")
+        raise ValueError("logup_trace: the chip reads preprocessed columns; prep is missing")
     if prep is not None and (prep.dim() != 2 or prep.shape[0] != main.shape[0]):
-        raise ValueError("logup_entries: prep must be (N, PW) with main's N")
+        raise ValueError("logup_trace: prep must be (N, PW) with main's N")
     if tuple(chal.shape) != (table.max_vals + 2, 4):
-        raise ValueError(f"logup_entries: chal must be ({table.max_vals + 2}, 4)")
+        raise ValueError(f"logup_trace: chal must be ({table.max_vals + 2}, 4)")
     for t in (prep, chal):
         if t is not None and t.device != main.device:
-            raise ValueError("logup_entries: inputs on different devices")
+            raise ValueError("logup_trace: inputs on different devices")
 
 
-def logup_entries(table: LogupTable, main: torch.Tensor, prep, chal: torch.Tensor) -> torch.Tensor:
-    """(N, NB+1, 4) canonical int32: entries, then the row sums.  On the
-    card, ENTRY_LANES threads share a row, each taking ceil(NB /
-    ENTRY_LANES) whole batches: at most 16 / ENTRY_LANES interactions."""
+def logup_trace(table: LogupTable, main: torch.Tensor, prep, chal: torch.Tensor):
+    """(perm, csum): the (N, NB+1, 4) canonical int32 permutation trace,
+    entries in columns 0..NB-1 and the running sum phi in column NB, and
+    the cumulative sum phi[N-1] as a (4,) tensor.  On the card one launch
+    of the fused kernel (after a clear of its scratch), in which
+    ENTRY_LANES threads share a row, each taking ceil(NB / ENTRY_LANES)
+    whole batches: at most 16 / ENTRY_LANES interactions."""
     _check_inputs(table, main, prep, chal)
     if not main.is_cuda:
-        return logup_entries_plain(table, main, prep, chal)
+        perm = logup_entries_plain(table, main, prep, chal)
+        return perm, logup_scan_plain(perm)
     share = min(table.n_inter, -(-table.nb // ENTRY_LANES) * table.batch)
     if table.n_inter > MAX_INTERACTIONS or share > MAX_INTERACTIONS // ENTRY_LANES:
-        raise ValueError(f"logup_entries: {table.n_inter} interactions in batches of "
+        raise ValueError(f"logup_trace: {table.n_inter} interactions in batches of "
                          f"{table.batch} do not fit {ENTRY_LANES} lanes a row")
-    kn.require_cuda_int32(main, "logup_entries main")
-    kn.require_cuda_int32(chal, "logup_entries chal")
+    kn.require_cuda_int32(main, "logup_trace main")
+    kn.require_cuda_int32(chal, "logup_trace chal")
     if prep is not None:
-        kn.require_cuda_int32(prep, "logup_entries prep")
+        kn.require_cuda_int32(prep, "logup_trace prep")
     desc = table.descriptor(main.device)
     n, w = main.shape
-    out = torch.empty((n, table.nb + 1, 4), dtype=I32, device=main.device)
-    err = kn.lib("logup.cu").zkbf_logup_entries(
+    lib = kn.lib("logup.cu")
+    words = lib.zkbf_logup_scratch_words(n)
+    scratch = torch.empty(words, dtype=I32, device=main.device)
+    perm = torch.empty((n, table.nb + 1, 4), dtype=I32, device=main.device)
+    csum = torch.empty(4, dtype=I32, device=main.device)
+    err = lib.zkbf_logup_trace(
         main.data_ptr(), w, prep.data_ptr() if prep is not None else None,
         prep.shape[1] if prep is not None else 0, n, desc.data_ptr(), desc.shape[0],
-        chal.data_ptr(), chal.shape[0], out.data_ptr(), table.n_inter, table.batch, table.nb,
-        kn.stream(),
+        chal.data_ptr(), chal.shape[0], perm.data_ptr(), csum.data_ptr(), scratch.data_ptr(),
+        words, table.n_inter, table.batch, table.nb, kn.stream(),
     )
-    kn.check(err, "logup_entries")
+    kn.check(err, "logup_trace")
     kn.COUNTS["logup_entries"] += 1
-    return out
-
-
-def logup_scan(perm: torch.Tensor) -> torch.Tensor:
-    """Column NB of an (N, NB+1, 4) trace becomes its inclusive running sum
-    (in place); returns its last row, the cumulative sum, as a (4,) tensor."""
-    if perm.dim() != 3 or perm.shape[2] != 4 or perm.shape[1] < 2:
-        raise ValueError(f"logup_scan: expected (N, NB+1, 4), got {tuple(perm.shape)}")
-    if not perm.is_cuda:
-        return logup_scan_plain(perm)
-    kn.require_cuda_int32(perm, "logup_scan", ndim=3)
-    n, nb1, _ = perm.shape
-    totals = torch.empty(4 * ((n + 1023) // 1024), dtype=I32, device=perm.device)
-    err = kn.lib("logup.cu").zkbf_logup_scan(perm.data_ptr(), n, nb1 - 1, totals.data_ptr(),
-                                             kn.stream())
-    kn.check(err, "logup_scan")
-    kn.COUNTS["logup_scan"] += 1
-    return perm[n - 1, nb1 - 1].clone()
+    return perm, csum

@@ -9,13 +9,17 @@ levels of the bulk pass (BULK_LEVELS: 2 or 3) with its register cap
 (BULK_MIN_BLOCKS: 12 or 16 blocks of 128 threads an SM), the register cap
 of `tree_kernel` (TREE_MIN_BLOCKS: 4 or 8 blocks of 256 threads) and the
 crossover below which a level takes 16 lanes a state (TREE_CROSSOVER: 16,
-32, 64 or 128 nodes); for `logup_entries`, the threads a row (ENTRY_LANES:
-1, 2 or 4) by the register cap (ENTRY_MIN_BLOCKS: 1, 6 or 8 blocks of 128
-threads).  The committed values are 2 bulk levels, caps 16, 4 and 8,
-crossover 32 and 2 lanes.  One nvcc each, in parallel, into
-build/probe_variants/; prints what ptxas reports for each.  Then, with CUDA
-events (median of 5 calls after a warm-up), on random inputs, each variant
-through the port's own wrappers:
+32, 64 or 128 nodes); for the fused LogUp kernel (`logup_entries`, through
+`logup_trace`), the threads a row (ENTRY_LANES: 1, 2 or 4) by the register
+cap (ENTRY_MIN_BLOCKS: 1, 6 or 8 blocks of 128 threads), the look-back lag
+(LAG_PERCENT: 0 = every tile resolves itself before its store, 50, 200),
+and a copy without the running sum (FUSED_SCAN 0: column NB keeps the row
+sums), timed alone and followed by the three-pass scan the port ran before
+(probes/logup_three_pass.cu).  The committed values are 2 bulk levels,
+caps 16, 4 and 8, crossover 32, 2 lanes and a lag of 100.  One nvcc each,
+in parallel, into build/probe_variants/; prints what ptxas reports for
+each.  Then, with CUDA events (median of 5 calls after a warm-up), on
+random inputs, each variant through the port's own wrappers:
 
 - `poseidon2_tree` (at most two launches a tree), beside a walk of one
   `poseidon2_permute` launch a level (and one more a compress-and-inject
@@ -23,10 +27,12 @@ through the port's own wrappers:
   at the LDE heights of the 8 chips), the 20 FRI trees of a prove back to
   back (stark/fri.py commits layers of 2^21 .. 2^2 EF4 values, each paired
   into a tree of half as many leaves: 2^20 .. 2), and one 2^16-leaf tree;
-- `logup_entries` for the Cpu chip at 2^20 rows and for the 8 chips at
+- `logup_trace` for the Cpu chip at 2^20 rows and for the 8 chips at
   their main-path heights back to back.
 
-Every result is checked against the plain version first.  Both sweeps run
+Every result is checked against the plain version first (the copy without
+the running sum against `logup_entries_plain` alone, and with the
+three-pass scan against the plain composition).  Both sweeps run
 twice, in turns, to show the spread.  Prints the card's name and power
 limit first and writes chiprun_out/tree_logup_variants.json.
 """
@@ -54,6 +60,10 @@ VARIANTS = [("poseidon2.cu", {}), ("poseidon2.cu", {"BULK_MIN_BLOCKS": 12}),
 VARIANTS += [("poseidon2.cu", {"TREE_CROSSOVER": c}) for c in (16, 64, 128)]
 VARIANTS += [("logup.cu", {"ENTRY_LANES": lanes, "ENTRY_MIN_BLOCKS": c})
              for c in (1, 6, 8) for lanes in (1, 2, 4)]
+VARIANTS += [("logup.cu", {"LAG_PERCENT": lag}) for lag in (0, 50, 200)]
+VARIANTS += [("logup.cu", {"FUSED_SCAN": 0}), ("logup_three_pass.cu", {})]
+NO_SCAN = "logup.cu FUSED_SCAN 0"
+THREE_PASS = "logup_three_pass.cu committed"
 HEIGHTS = (("Cpu", 20), ("AddSub", 20), ("Jump", 19), ("Program", 17), ("Byte", 16),
            ("MemoryInstrs", 12), ("IO", 4), ("Memory", 4))
 
@@ -82,7 +92,7 @@ def build_variants():
         name = f"{src} " + (", ".join(f"{k} {v}" for k, v in values.items()) or "committed")
         d = os.path.join(OUT, re.sub(r"\W+", "_", name))
         os.makedirs(d, exist_ok=True)
-        with open(os.path.join(CSRC, src)) as fh:
+        with open(os.path.join(HERE if src == "logup_three_pass.cu" else CSRC, src)) as fh:
             text = fh.read()
         for const, value in values.items():
             text, hits = re.subn(rf"constexpr int {const} = \d+;", f"constexpr int {const} = {value};",
@@ -101,7 +111,9 @@ def build_variants():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        kernels = ("tree_kernel", "bulk_kernel") if src == "poseidon2.cu" else ("entries_kernel",)
+        kernels = {"poseidon2.cu": ("tree_kernel", "bulk_kernel"), "logup.cu": ("entries_kernel",),
+                   "logup_three_pass.cu": ("scan_tiles_kernel", "scan_totals_kernel",
+                                           "scan_carry_kernel")}[src]
         summary = []
         for m in re.finditer(r"Function properties for (\S+)\n\s+(\d+) bytes stack frame, (\d+) bytes "
                              r"spill stores, (\d+) bytes spill loads\nptxas info\s+: Used (\d+) "
@@ -119,9 +131,13 @@ def load(kn, src, path):
     from zkvm_brainfuck_tpu_torch.ops.poseidon2 import montgomery_constants
 
     handle = ctypes.CDLL(path)
+    if src == "logup_three_pass.cu":
+        # (perm, n, nb, totals, stream)
+        handle.zkbf_logup_scan.argtypes = [kn._P, kn._I, kn._I, kn._P, kn._P]
+        return handle
     for fn, argtypes in kn._ARGTYPES[src].items():
         getattr(handle, fn).argtypes = argtypes
-        getattr(handle, fn).restype = ctypes.c_int
+        getattr(handle, fn).restype = kn._RESTYPES.get(fn, ctypes.c_int)
     if src == "poseidon2.cu":
         arrays = [(ctypes.c_uint32 * len(c))(*c) for c in montgomery_constants()]
         kn.check(handle.zkbf_p2_set_constants(*[ctypes.addressof(a) for a in arrays]), "constants")
@@ -223,20 +239,39 @@ def main() -> int:
         beta = tuple(int(x) for x in rng.integers(0, P, 4))
         chal = lu.challenge_matrix(rng.integers(0, P, 4), host_beta_pows(chip, beta), dev)
         table = logup_table(chip)
-        cases.append((table, main_t, prep, chal, lu.logup_entries_plain(table, main_t, prep, chal)))
+        entries = lu.logup_entries_plain(table, main_t, prep, chal)
+        phi = entries.clone()
+        cases.append((table, main_t, prep, chal, entries, phi, lu.logup_scan_plain(phi)))
+    three_pass = load(kn, "logup_three_pass.cu", variants[THREE_PASS][1])
+
+    def entries_then_scan(table, main_t, prep, chal):
+        """The entries-only copy, then the three-pass scan of column NB."""
+        perm, _ = lu.logup_trace(table, main_t, prep, chal)
+        n = perm.shape[0]
+        totals = torch.empty(4 * ((n + 1023) // 1024), dtype=torch.int32, device=dev)
+        kn.check(three_pass.zkbf_logup_scan(perm.data_ptr(), n, table.nb, totals.data_ptr(),
+                                            kn.stream()), "zkbf_logup_scan")
+        return perm, perm[n - 1, table.nb].clone()
+
     entry_variants = [k for k, v in variants.items() if v[0] == "logup.cu"]
+    entry_variants.append(THREE_PASS)
     for rnd, order in enumerate((entry_variants, entry_variants[::-1])):
         for name in order:
-            load(kn, "logup.cu", variants[name][1])
-            for table, main_t, prep, chal, want in cases:
-                if not torch.equal(lu.logup_entries(table, main_t, prep, chal), want):
-                    raise AssertionError(f"logup_entries {table.n_inter} interactions, "
+            load(kn, "logup.cu", variants[NO_SCAN if name == THREE_PASS else name][1])
+            run = entries_then_scan if name == THREE_PASS else lu.logup_trace
+            for table, main_t, prep, chal, entries, phi, csum in cases:
+                perm, got_csum = run(table, main_t, prep, chal)
+                ok = (torch.equal(perm, entries) if name == NO_SCAN
+                      else torch.equal(perm, phi) and torch.equal(got_csum, csum))
+                if not ok:
+                    raise AssertionError(f"logup_trace {table.n_inter} interactions, "
                                          f"{name}: differs from plain")
             cpu = cases[0]
-            row = {"Cpu 2^20": cuda_ms(torch, lambda: lu.logup_entries(*cpu[:4])),
-                   "8 chips": cuda_ms(torch, lambda: [lu.logup_entries(*c[:4]) for c in cases])}
-            report["logup"].append({"round": rnd, "variant": name, "ms": row})
-            print(f"[logup] round {rnd} {name}: Cpu 2^20 {row['Cpu 2^20']:.4f} ms, "
+            row = {"Cpu 2^20": cuda_ms(torch, lambda: run(*cpu[:4])),
+                   "8 chips": cuda_ms(torch, lambda: [run(*c[:4]) for c in cases])}
+            label = f"{NO_SCAN} + three-pass scan" if name == THREE_PASS else name
+            report["logup"].append({"round": rnd, "variant": label, "ms": row})
+            print(f"[logup] round {rnd} {label}: Cpu 2^20 {row['Cpu 2^20']:.4f} ms, "
                   f"8 chips at their main-path heights {row['8 chips']:.4f} ms", flush=True)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "tree_logup_variants.json"), "w") as fh:

@@ -9,11 +9,19 @@ max log degree (crates/prover/src/verify.rs:16-28).
 
 The device work runs on the card unless the prover is built with
 device="cpu" (the plain versions of the kernels, for the tests).
+
+Environment, as in the JAX package: BF_DEBUG=1 replays the constraints
+and the lookups after a prove (`StarkMachine.debug_constraints`; off with
+SKIP_CONSTRAINTS); ZKBF_PROFILE=<dir> wraps the prove in torch.profiler
+and writes a Chrome trace into <dir>; ZKBF_LOG sets the log level
+(`utils.logging.setup_logger`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
 import struct
 import time
 from dataclasses import dataclass, field
@@ -21,6 +29,7 @@ from typing import Dict, Optional, Tuple
 
 from .core.executor import execute
 from .core.program import Program
+from .device import elapsed
 from .models.machine_def import brainfuck_chips
 from .stark.config import KoalaBearPoseidon2
 from .stark.errors import (
@@ -33,6 +42,8 @@ from .stark.machine import StarkMachine, StarkProvingKey, StarkVerifyingKey
 from .stark.prover import CudaProver
 from .stark.serial import decode_vk, encode_vk
 from .stark.types import MachineProof
+from .utils import phases
+from .utils.report import generate_execution_report
 
 log = logging.getLogger("zkbf.prover")
 
@@ -116,14 +127,19 @@ class BfProver:
 
     def prove(self, pk: BfProvingKey, stdin: bytes) -> BfCoreProof:
         timings: Dict[str, float] = {}
+        program = Program.from_source(pk.elf)
         t0 = time.time()
-        record = execute(Program.from_source(pk.elf), stdin)
+        record = execute(program, stdin)
         timings["execute"] = time.time() - t0
+        phases.add("execute", timings["execute"])
 
         challenger = self.config.challenger()
+        device = self.core_prover.device
         t0 = time.time()
-        proof = self.core_prover.prove(pk.pk, record, challenger, timings=timings)
-        timings["prove_total"] = time.time() - t0
+        with _profiled(os.environ.get("ZKBF_PROFILE"), device):
+            proof = self.core_prover.prove(pk.pk, record, challenger, timings=timings)
+        timings["prove_total"] = elapsed(t0, device)
+        phases.add("prove_total", timings["prove_total"])
         log.info(
             "summary: cycles=%d, e2e=%dms, khz=%.2f, proofSize=%d",
             record.global_clk,
@@ -131,6 +147,12 @@ class BfProver:
             record.global_clk / max(timings["prove_total"] * 1000, 1e-9),
             len(proof.to_bytes()),
         )
+        for line in generate_execution_report(record.opcode_counts()):
+            log.debug("%s", line)
+
+        if os.environ.get("BF_DEBUG", "").lower() in ("1", "true"):
+            self.machine.debug_constraints(program, record, device=device)
+
         return BfCoreProof(
             proof=proof,
             stdin=bytes(stdin),
@@ -153,3 +175,25 @@ class BfProver:
                 f"structurally invalid shard proof: {type(e).__name__}: {e}"
             ) from e
         self.machine.verify(vk.vk, proof, self.config.challenger())
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir: Optional[str], device):
+    """ZKBF_PROFILE=<dir>: a torch.profiler trace of the block (host, and the
+    card's kernels and copies when `device` is the card), written into <dir>
+    as a Chrome trace; the counterpart of the JAX package's
+    jax.profiler.trace.  Without a directory, nothing."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"prove_{os.getpid()}_{time.time_ns()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    log.info("torch.profiler trace written to %s", path)

@@ -31,6 +31,7 @@ from ..ops import field as xf
 from ..ops import merkle as mk
 from ..ops import ntt as nt
 from ..ops.field import P
+from ..utils import phases
 from . import ef_host as efh
 from .challenger import DuplexChallenger
 from .errors import InvalidOpeningArgument, InvalidPowWitness, OpeningShapeError
@@ -105,8 +106,10 @@ def fri_prove(
             break
 
     final_host = xe.to_array(current).cpu().numpy()
+    secs = time.time() - t0
+    phases.add("fri_commit", secs)
     if timings is not None:
-        timings["fri_commit"] = time.time() - t0
+        timings["fri_commit"] = secs
     final_poly = tuple(int(x) for x in final_host[0])
     for v in final_host:
         assert tuple(int(x) for x in v) == final_poly, "final layer not constant"
@@ -114,8 +117,10 @@ def fri_prove(
         challenger.observe(c)
     t0 = time.time()
     pow_witness = challenger.grind(pow_bits, device)
+    secs = time.time() - t0
+    phases.add("grind", secs)
     if timings is not None:
-        timings["grind"] = time.time() - t0
+        timings["grind"] = secs
     indices = [challenger.sample_bits(log_max) for _ in range(num_queries)]
 
     idx = np.asarray(indices, np.int64)

@@ -5,10 +5,12 @@ crates/stark/src/machine.rs).  Preprocessed traces are sorted by (height
 desc, name asc) and committed in one PCS batch on the device; pk/vk carry
 the root, the ordering and the local-only flags.  The transcript binds the
 preprocessed root plus a 7-zero pad exactly like machine.rs:64-69.
+`debug_constraints` is the BF_DEBUG replay.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
@@ -138,3 +140,66 @@ class StarkMachine:
             raise MachineVerificationError(
                 f"structurally invalid shard proof: {type(e).__name__}: {e}"
             ) from e
+
+    # -- debug -------------------------------------------------------------
+
+    def debug_constraints(self, program: Program, record: ExecutionRecord, device=None):
+        """Row-by-row constraint + lookup-balance replay (debug feature).
+
+        Mirrors machine.rs:288-387 + debug.rs:24-262, as the JAX package's
+        StarkMachine.debug_constraints does: the traces are generated on
+        `device` (the card unless device="cpu") and checked on the host
+        (stark/debug.py): the AIR constraints, the lookup balance, THEN two
+        permutation challenges sampled from a challenger that observed 0..7,
+        each chip's LogUp permutation trace from generate_permutation_trace
+        (on the card, the fused LogUp kernel), the permutation constraints
+        row by row, and the global cumulative-sum-zero check.  Raises
+        AssertionError on the first failure; SKIP_CONSTRAINTS turns it off.
+        """
+        if os.environ.get("SKIP_CONSTRAINTS"):
+            return
+        from . import ef_host as efh
+        from . import permutation
+        from .debug import check_constraints, debug_lookup_balance
+
+        def host(t):
+            return None if t is None else t.cpu().numpy().astype(np.uint32)
+
+        device = resolve_device(device)
+        deps = self.generate_dependencies(record, device=device)
+        traces = []
+        for chip in self.shard_chips(record):
+            prep = chip.air.generate_preprocessed(program, device=device)
+            main = chip.air.generate_trace(record, deps, device=device)
+            prep_np, main_np = host(prep), host(main)
+            traces.append((chip, prep, main, prep_np, main_np))
+            fails = check_constraints(chip, main_np, prep_np)
+            if fails:
+                raise AssertionError(f"constraint failures: {fails}")
+        imbalance = debug_lookup_balance([(c, p, m) for c, _p, _m, p, m in traces])
+        if imbalance:
+            raise AssertionError(
+                f"lookup imbalance ({len(imbalance)} keys): "
+                f"{dict(list(imbalance.items())[:10])}"
+            )
+
+        # Permutation replay: sample 2 challenges, build the real LogUp
+        # traces, re-check AIR + permutation constraints per row, and assert
+        # the cumulative sums cancel (machine.rs:331-387).
+        challenger = DuplexChallenger()
+        challenger.observe_slice(list(range(8)))
+        perm_challenges = [challenger.sample_ext(), challenger.sample_ext()]
+        total = efh.ZERO
+        for chip, prep, main, prep_np, main_np in traces:
+            perm, csum = permutation.generate_permutation_trace(
+                chip, prep, main, perm_challenges[0], perm_challenges[1]
+            )
+            csum_host = tuple(int(x) for x in csum.cpu().tolist())
+            fails = check_constraints(
+                chip, main_np, prep_np, host(perm), perm_challenges, csum_host
+            )
+            if fails:
+                raise AssertionError(f"permutation constraint failures: {fails}")
+            total = efh.add(total, csum_host)
+        if total != efh.ZERO:
+            raise AssertionError(f"cumulative sums do not cancel: {total}")

@@ -31,6 +31,7 @@ from ..ops import field as xf
 from ..ops import merkle as mk
 from ..ops import ntt as nt
 from ..ops.field import GENERATOR, I32, I64, P
+from ..utils import phases
 from . import ef_host as efh
 from .challenger import DuplexChallenger
 from .domains import Domain, domain_points_dev
@@ -254,6 +255,7 @@ def pcs_open(
             ]
             off += w
     timings["open_eval"] = time.time() - t0
+    phases.add("open_eval", timings["open_eval"])
     t0 = time.time()
 
     # 2. Bind opened values, then sample the combination challenge.
@@ -283,6 +285,7 @@ def pcs_open(
             ro[log_h] = xe.ezeros((1 << log_h,), device=device)
         ro[log_h] = ro_accum(ro[log_h], mats_and_aps, s, _inv_x_minus_z(pts, z))
     timings["reduced_open"] = elapsed(t0, device)
+    phases.add("reduced_open", timings["reduced_open"])
 
     # 4. FRI.
     fri_proof, indices = fri_prove(ro, challenger, LOG_BLOWUP, num_queries, pow_bits, timings)
@@ -300,6 +303,7 @@ def pcs_open(
         for q in range(num_queries)
     ]
     timings["query_open"] = time.time() - t0
+    phases.add("query_open", timings["query_open"])
     return opened_values, PcsProof(fri=fri_proof, query_input_openings=query_input_openings)
 
 

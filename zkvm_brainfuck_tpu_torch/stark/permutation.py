@@ -9,9 +9,9 @@ running-sum column whose last entry is the chip's cumulative sum.
 fingerprint_i = alpha + argument_index_i + sum_j beta^{j+1} * value_{i,j}
 (the beta^0 slot carries the LookupKind discriminant).
 
-The trace is made by two kernels (ops/logup.py, csrc/logup.cu):
-`logup_entries` (fingerprints, one batch inversion per row, batch sums, row
-sums) and `logup_scan` (the running sum).  The constraints are copied from
+The trace is made by one kernel (ops/logup.py `logup_trace`,
+csrc/logup.cu): fingerprints, one batch inversion per row, batch sums, row
+sums, and the running sum as a single-pass scan with decoupled look-back.  The constraints are copied from
 the JAX package and run over any numeric builder (quotient, verifier).
 """
 
@@ -59,9 +59,7 @@ def generate_permutation_trace(chip: Chip, prep, main, alpha_host, beta_host):
     int32 tensor on the device)."""
     table = logup_table(chip)
     chal = lu.challenge_matrix(alpha_host, host_beta_pows(chip, beta_host), main.device)
-    perm = lu.logup_entries(table, main, prep, chal)
-    csum = lu.logup_scan(perm)
-    return perm, csum
+    return lu.logup_trace(table, main, prep, chal)
 
 
 def eval_permutation_constraints(chip: Chip, b) -> None:

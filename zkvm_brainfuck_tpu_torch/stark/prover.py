@@ -25,6 +25,7 @@ from ..core.program import Program
 from ..core.record import ExecutionRecord
 from ..device import elapsed, resolve_device
 from ..ops.field import GENERATOR
+from ..utils import phases
 from .challenger import DuplexChallenger
 from .domains import Domain
 from .machine import StarkMachine, StarkProvingKey
@@ -85,10 +86,12 @@ class MachineProver:
         t0 = time.time()
         named_traces = self.generate_traces(record)
         timings["trace_gen"] = elapsed(t0, self.device)
+        phases.add("trace_gen", timings["trace_gen"])
 
         t0 = time.time()
         shard_data = self.commit(named_traces)
         timings["main_commit"] = elapsed(t0, self.device)
+        phases.add("main_commit", timings["main_commit"])
         # open() drops the main eval matrices after LogUp; no other
         # reference may keep them alive.
         del named_traces
@@ -159,6 +162,7 @@ class CudaProver(MachineProver):
             tuple(int(x) for x in row) for row in torch.stack(cumulative_sums).cpu().tolist()
         ]
         timings["perm_trace"] = elapsed(t0, device)
+        phases.add("perm_trace", timings["perm_trace"])
         for i, chip in enumerate(chips):
             log.debug(
                 "%-12s | Main Cols = %3d | Pre Cols = %3d | Perm Cols = %3d | Rows = %7d",
@@ -178,6 +182,7 @@ class CudaProver(MachineProver):
         )
         perm_traces = None  # the committed round keeps the LDEs
         timings["perm_commit"] = elapsed(t0, device)
+        phases.add("perm_commit", timings["perm_commit"])
 
         challenger.observe_commitment([int(x) for x in perm_root])
         for csum in cumulative_sums_host:
@@ -213,6 +218,7 @@ class CudaProver(MachineProver):
             quotient_mats.extend(chunks)
             chunk_counts.append(1 << log_qd)
         timings["quotient"] = elapsed(t0, device)
+        phases.add("quotient", timings["quotient"])
 
         t0 = time.time()
         quotient_root, quotient_data = pcs_commit(
@@ -221,6 +227,7 @@ class CudaProver(MachineProver):
         n_quotient_mats = len(quotient_mats)
         quotient_mats = None  # the committed round keeps the LDEs
         timings["quotient_commit"] = elapsed(t0, device)
+        phases.add("quotient_commit", timings["quotient_commit"])
         challenger.observe_commitment([int(x) for x in quotient_root])
 
         zeta = challenger.sample_ext()
@@ -251,6 +258,7 @@ class CudaProver(MachineProver):
             timings=timings,
         )
         timings["pcs_open_total"] = elapsed(t0, device)
+        phases.add("pcs_open_total", timings["pcs_open_total"])
 
         prep_vals, main_vals, perm_vals, quot_vals = opened
 
