@@ -52,8 +52,15 @@ result line:
    Cpu running sum must each make it raise.
 11. profile trace: a `printa` prove with ZKBF_PROFILE set must write a
    torch.profiler trace that names the fused LogUp kernel.
-12. scale: ProverClient prove and verify of the 2^22 - 1 cycle bench guest:
-   peak device memory and phase seconds.
+12. lowmem: the `printa` golden vk, transcript and proof reproduced on the
+   card in the low-memory mode with every LDE in 4-column blocks
+   (ZKBF_LOWMEM=1, ZKBF_BLK_LOG=4, ZKBF_BLK_W=4); every kernel must launch
+   on that path.
+13. scale: the 2^22 - 1 cycle bench guest proved twice with one key, by
+   default (the low-memory mode, as the JAX package runs it at that size)
+   and with ZKBF_LOWMEM=0; both verify and give the same bytes.  For each:
+   launches, peak device memory, phase seconds and the peak at the end of
+   each phase.  And the host seconds of a cold bit_reversal_perm(23).
 
 The last two lines of standard output are the `kernels` JSON object (its
 launch counts are those of the main path, phase 7) and the `ok` JSON object.
@@ -641,15 +648,31 @@ def recording_config():
     return RecordingConfig()
 
 
-def phase_golden_main(torch, dev, report):
-    from zkvm_brainfuck_tpu_torch import ProverClient, guests
-    from zkvm_brainfuck_tpu_torch.sdk import CpuProver
-
+def check_golden_printa(vk, transcript, proof_bytes, what):
+    """Raise unless the vk, the transcript and the proof bytes of a `printa`
+    prove equal tests/golden/{vk,proof}_printa_q84.bin and
+    transcript_printa_q84.json."""
     golden_dir = os.path.join(ROOT, "tests", "golden")
 
     def read(name, mode="rb"):
         with open(os.path.join(golden_dir, name), mode) as fh:
             return fh.read()
+
+    if vk.to_bytes() != read("vk_printa_q84.bin"):
+        raise AssertionError(f"{what} vk differs from tests/golden/vk_printa_q84.bin")
+    want = json.loads(read("transcript_printa_q84.json", "r"))["transcript"]
+    first = next((i for i, (a, b) in enumerate(zip(transcript, want)) if a != b),
+                 None if len(transcript) == len(want) else min(len(transcript), len(want)))
+    if first is not None:
+        where = next((n for n, lo, hi in TRANSCRIPT_SEGMENTS if lo <= first < hi), "beyond S5")
+        raise AssertionError(f"{what} transcript differs first at entry {first} ({where})")
+    if proof_bytes != read("proof_printa_q84.bin"):
+        raise AssertionError(f"{what} proof differs from tests/golden/proof_printa_q84.bin")
+
+
+def phase_golden_main(torch, dev, report):
+    from zkvm_brainfuck_tpu_torch import ProverClient, guests
+    from zkvm_brainfuck_tpu_torch.sdk import CpuProver
 
     config = recording_config()
     client = ProverClient(CpuProver(config=config))
@@ -657,18 +680,9 @@ def phase_golden_main(torch, dev, report):
     pk, vk = client.setup(guests.PRINTA_BF)
     proof = client.prove(pk, b"").run()
     secs = time.time() - t0
-    if vk.to_bytes() != read("vk_printa_q84.bin"):
-        raise AssertionError("card-path vk differs from tests/golden/vk_printa_q84.bin")
-    want = json.loads(read("transcript_printa_q84.json", "r"))["transcript"]
     got = config.challengers[0].record
-    first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
-                 None if len(got) == len(want) else min(len(got), len(want)))
-    if first is not None:
-        where = next((n for n, lo, hi in TRANSCRIPT_SEGMENTS if lo <= first < hi), "beyond S5")
-        raise AssertionError(f"card-path transcript differs first at entry {first} ({where})")
     data = proof.proof.proof.to_bytes()
-    if data != read("proof_printa_q84.bin"):
-        raise AssertionError("card-path proof differs from tests/golden/proof_printa_q84.bin")
+    check_golden_printa(vk, got, data, "card-path")
     client.verify(proof, vk)
     report["golden_main"] = {"guest": "printa", "setup_and_prove_s": secs, "proof_bytes": len(data),
                              "transcript_entries": len(got)}
@@ -1070,34 +1084,138 @@ def phase_profile_trace(torch, dev, report):
         f"({size} bytes), which names {func_name(hits[0])}")
 
 
-def phase_scale(torch, dev, report):
-    """One ProverClient prove and verify of the 2^22 - 1 cycle bench guest:
-    the peak device memory and the phase seconds (the evidence for or
-    against a low-memory mode on this card)."""
-    from zkvm_brainfuck_tpu_torch import ProverClient, guests
+@contextlib.contextmanager
+def phase_peaks(torch):
+    """Wrap utils.phases.add, which every prover phase calls as it ends:
+    record the peak device memory since the previous phase ended (then
+    start a new peak).  Yields the list of (phase, seconds, peak bytes) in
+    order; a total's entry (pcs_open_total, prove_total) covers only what
+    follows its last inner phase."""
+    from zkvm_brainfuck_tpu_torch.utils import phases as ph
 
-    log_n = 22
+    inner = ph.add
+    seen = []
+
+    def add(name, seconds):
+        inner(name, seconds)
+        torch.cuda.synchronize()
+        seen.append((name, seconds, torch.cuda.max_memory_allocated()))
+        torch.cuda.reset_peak_memory_stats()
+
+    ph.add = add
+    try:
+        yield seen
+    finally:
+        ph.add = inner
+
+
+SCALE_LOG = 22
+
+
+def phase_scale(torch, dev, report):
+    """The 2^22 - 1 cycle bench guest (the largest MAX_CPU_LOG_DEGREE allows)
+    proved twice with one key: by default, which is the low-memory mode for
+    the main, permutation and quotient rounds (their tallest LDE reaches
+    2^ZKBF_LOWMEM_LOG = 2^23 rows) with the LDEs in blocks of 8 columns, as
+    the JAX package runs it; then with ZKBF_LOWMEM=0.  Both proofs verify and
+    their bytes are equal.  For each: the launch counts (set to 0 just
+    before the prove, read after its verify: every kernel must launch), the
+    peak device memory, the phase seconds and the peak at the end of each
+    phase.  Also the host seconds of a cold bit_reversal_perm(23), the
+    table that query_open built before the query indices were reversed
+    directly."""
+    from zkvm_brainfuck_tpu_torch import ProverClient, guests
+    from zkvm_brainfuck_tpu_torch.ops import kernels as kn
+    from zkvm_brainfuck_tpu_torch.ops import ntt as nt
+
+    t0 = time.time()
+    nt.bit_reversal_perm.__wrapped__(SCALE_LOG + 1)  # uncached, so cold
+    table_s = time.time() - t0
+    say(f"[scale] bit_reversal_perm({SCALE_LOG + 1}) cold on the host: {table_s:.4f} s")
     torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     client = ProverClient()
     t0 = time.time()
-    pk, vk = client.setup(guests.bench_guest(log_n))
+    pk, vk = client.setup(guests.bench_guest(SCALE_LOG))
     torch.cuda.synchronize()
     setup_s = time.time() - t0
-    proof = client.prove(pk, b"").run()
-    peak = torch.cuda.max_memory_allocated()
-    t0 = time.time()
-    client.verify(proof, vk)
-    verify_s = time.time() - t0
-    if proof.proof.cycles != (1 << log_n) - 1:
-        raise AssertionError(f"2^{log_n} guest ran {proof.proof.cycles} cycles")
-    phases = dict(proof.proof.timings, setup=setup_s, verify=verify_s)
-    report["scale"] = {"log_cycles": log_n, "cycles": proof.proof.cycles, "peak_bytes": peak,
-                       "phases_s": phases}
-    say(f"[scale] 2^{log_n} - 1 cycles: proved and verified; peak device memory "
-        f"{peak / 2**30:.3f} GiB of {torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}")
-    say("[scale] phases (s): " + ", ".join(f"{k} {v:.4f}" for k, v in phases.items()))
+    report["scale"] = {"log_cycles": SCALE_LOG, "bit_reversal_perm_23_s": table_s, "setup_s": setup_s}
+    proofs = {}
+    for mode, env in (("default (low-memory)", None), ("ZKBF_LOWMEM=0", "0")):
+        if env is not None:
+            os.environ["ZKBF_LOWMEM"] = env
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kn.reset_counts()
+            with phase_peaks(torch) as seen:
+                proof = client.prove(pk, b"").run()
+            torch.cuda.synchronize()
+            peak = max([torch.cuda.max_memory_allocated()] + [b for _n, _s, b in seen])
+            t0 = time.time()
+            client.verify(proof, vk)
+            verify_s = time.time() - t0
+            counts = dict(kn.COUNTS)
+        finally:
+            os.environ.pop("ZKBF_LOWMEM", None)
+        if proof.proof.cycles != (1 << SCALE_LOG) - 1:
+            raise AssertionError(f"2^{SCALE_LOG} guest ran {proof.proof.cycles} cycles")
+        missing = [k for k, v in counts.items() if v <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched by the {mode} 2^{SCALE_LOG} prove: {missing}")
+        proofs[mode] = proof.proof.proof.to_bytes()
+        phases = dict(proof.proof.timings, verify=verify_s)
+        report["scale"][mode] = {"peak_bytes": peak, "phases_s": phases, "launches": counts,
+                                 "phase_peaks": [[n, s, b] for n, s, b in seen]}
+        say(f"[scale] {mode}: 2^{SCALE_LOG} - 1 cycles proved and verified; peak device memory "
+            f"{peak / 2**30:.3f} GiB of "
+            f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}")
+        say(f"[scale] {mode}: phases (s): " + ", ".join(f"{k} {v:.4f}" for k, v in phases.items()))
+        say(f"[scale] {mode}: peak device memory at the end of each phase (GiB, since the previous "
+            f"phase ended): " + ", ".join(f"{n} {b / 2**30:.3f}" for n, _s, b in seen))
+        say(f"[scale] {mode}: launches: {counts}")
+    a, b = proofs.values()
+    if a != b:
+        raise AssertionError("the low-memory and normal 2^22 proofs differ")
+    say(f"[scale] the two modes' proofs are the same {len(a)} bytes")
+
+
+def phase_lowmem(torch, dev, report):
+    """The golden `printa` prove under ZKBF_LOWMEM=1 with every LDE height
+    blocked (ZKBF_BLK_LOG=4) on the card must reproduce the JAX-made vk,
+    1741-entry transcript and proof byte for byte.  Blocks of 4 columns
+    (ZKBF_BLK_W=4) give digest layers of more blocks than one hash_rows
+    launch takes (up to 15), so the wrapper's joining runs too.  The launch
+    counts are set to 0 just before setup and read after verify: every
+    kernel must have launched on this path."""
+    from zkvm_brainfuck_tpu_torch import ProverClient, guests
+    from zkvm_brainfuck_tpu_torch.ops import kernels as kn
+    from zkvm_brainfuck_tpu_torch.sdk import CpuProver
+
+    env = {"ZKBF_LOWMEM": "1", "ZKBF_BLK_LOG": "4", "ZKBF_BLK_W": "4"}
+    os.environ.update(env)
+    try:
+        config = recording_config()
+        client = ProverClient(CpuProver(config=config))
+        kn.reset_counts()
+        t0 = time.time()
+        pk, vk = client.setup(guests.PRINTA_BF)
+        proof = client.prove(pk, b"").run()
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        client.verify(proof, vk)
+        counts = dict(kn.COUNTS)
+    finally:
+        for k in env:
+            del os.environ[k]
+    if not (pk.pk.data.lowmem and pk.pk.data.tree.flat is None):
+        raise AssertionError("ZKBF_LOWMEM=1: the setup commit kept its LDEs or tree")
+    check_golden_printa(vk, config.challengers[0].record, proof.proof.proof.to_bytes(), "low-memory")
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the low-memory path: {missing}")
+    report["lowmem"] = {"env": env, "setup_and_prove_s": secs, "launches": counts}
+    say(f"[lowmem] printa with {env}: vk, 1741 transcript entries and proof bytes equal "
+        f"tests/golden/*_printa_q84 (setup + prove {secs:.2f} s); launches {counts}")
 
 
 def main() -> int:
@@ -1130,6 +1248,7 @@ def main() -> int:
     del client, pk
     phase_debug(torch, dev, report)
     phase_profile_trace(torch, dev, report)
+    phase_lowmem(torch, dev, report)
     phase_scale(torch, dev, report)
 
     line = {"kernels": [

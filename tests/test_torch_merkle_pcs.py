@@ -110,3 +110,45 @@ def test_pcs_open_verify_roundtrip():
     bad[0][2] = ((bad[0][2][0] + 1) % P,) + tuple(bad[0][2][1:])
     with pytest.raises(VerificationFailure):
         verify(bad)
+
+
+@pytest.mark.parametrize("log_h", range(1, 24))
+def test_reverse_bits_equals_the_table(log_h):
+    from zkvm_brainfuck_tpu_torch.ops import ntt as tnt
+
+    idx = np.random.default_rng(log_h).integers(0, 1 << log_h, size=84)
+    table = tnt.bit_reversal_perm.__wrapped__(log_h)  # uncached: no 2^23 table kept
+    assert np.array_equal(tnt.reverse_bits(idx, log_h), table[idx])
+
+
+def test_pcs_open_verify_without_index_tables(monkeypatch):
+    """The prover's and the verifier's query paths build no table of the
+    whole domain: a normal and a low-memory round open and verify with the
+    bit-reversal table and the host domain points made to raise."""
+    from zkvm_brainfuck_tpu_torch.ops import ntt as tnt
+
+    def refuse(*_args):
+        raise AssertionError("a whole-domain table was built on the query path")
+
+    rng = np.random.default_rng(9)
+    doms = [Domain(6, 1), Domain(4, 1)]
+    rounds, claims = [], []
+    ch = DuplexChallenger()
+    for lowmem in ("0", "1"):
+        monkeypatch.setenv("ZKBF_LOWMEM", lowmem)
+        evals = [_t(rng.integers(0, P, size=(d.size, 3), dtype=np.uint32)) for d in doms]
+        root, data = tpcs.pcs_commit(list(zip(doms, evals)), device="cpu")
+        assert data.lowmem == (lowmem == "1")
+        ch.observe_commitment([int(x) for x in root])
+        rounds.append(data)
+        claims.append([int(x) for x in root])
+    z = ch.sample_ext()
+    vch = ch.clone()
+    monkeypatch.setattr(tnt, "bit_reversal_perm", refuse)
+    monkeypatch.setattr(Domain, "points_host", refuse)
+    opened, proof = tpcs.pcs_open([(d, [[z], [z]]) for d in rounds], ch, num_queries=8, pow_bits=4)
+    tpcs.pcs_verify(
+        [(root, [(d, [(z, opened[r][i][0])]) for i, d in enumerate(doms)])
+         for r, root in enumerate(claims)],
+        proof, vch, num_queries=8, pow_bits=4,
+    )

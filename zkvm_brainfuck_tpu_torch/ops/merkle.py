@@ -232,7 +232,7 @@ def open_many(trees: Sequence[MerkleTree], indices_list):
             log_h = int(m.shape[0]).bit_length() - 1
             r = indices >> (plan.log_max - log_h)
             if tree.bitrev:
-                r = nt.bit_reversal_perm(log_h)[r]
+                r = nt.reverse_bits(r, log_h)
             pieces.append(m.index_select(0, torch.as_tensor(r, device=m.device)))
         if plan.log_max > 0:
             sibs = sibling_flat_indices(plan, indices)

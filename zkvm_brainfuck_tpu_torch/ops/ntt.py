@@ -51,6 +51,16 @@ def bit_reversal_perm(log_n: int) -> np.ndarray:
     return rev
 
 
+def reverse_bits(idx, log_n: int) -> np.ndarray:
+    """The low log_n bits of each index reversed: bit_reversal_perm(log_n)[idx]
+    without building the 2^log_n table (O(len(idx) * log_n))."""
+    idx = np.asarray(idx, np.int64)
+    rev = np.zeros_like(idx)
+    for b in range(log_n):
+        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
+    return rev
+
+
 @lru_cache(maxsize=None)
 def twiddle_blob(log_n: int, inverse: bool) -> np.ndarray:
     """All stage tables concatenated (canonical uint32): stage s at offset

@@ -227,7 +227,11 @@ def hash_rows(mats: Union[torch.Tensor, Sequence[torch.Tensor]], bitrev: bool = 
     if not mats[0].is_cuda:
         return hash_rows_plain(mats, bitrev)
     if len(mats) > MAX_MATS:
-        raise ValueError(f"hash_rows: at most {MAX_MATS} matrices per launch")
+        # More matrices than a launch takes (narrow LDE blocks): join
+        # neighbours.  The sponge reads the row concatenation, so the
+        # digests do not change.
+        per = -(-len(mats) // MAX_MATS)
+        mats = [torch.cat(mats[k : k + per], dim=1) for k in range(0, len(mats), per)]
     if bitrev and h & (h - 1):
         raise ValueError("hash_rows: a bit-reversed height must be a power of two")
     for m in mats:

@@ -227,8 +227,7 @@ def fri_check_queries_np(
                 f"FRI query {int(np.argmin(okv))}: folded value mismatch at layer {l}"
             )
         # x~ = g_h^{rev_h(idx & ~1)}
-        rev = nt.bit_reversal_perm(log_h)
-        xt = _pow_base_vec(xf.two_adic_root(log_h), np.asarray(rev[idx & ~1]))
+        xt = _pow_base_vec(xf.two_adic_root(log_h), nt.reverse_bits(idx & ~1, log_h))
         s = efh.v_mul_base(efh.v_add(e0, e1), np.uint64(half))
         d = efh.v_mul_base(
             efh.v_mul_base(efh.v_sub(e0, e1), np.uint64(half)),

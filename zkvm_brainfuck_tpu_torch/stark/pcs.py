@@ -1,26 +1,38 @@
 """Two-adic FRI polynomial commitment scheme (the reference's TwoAdicFriPcs).
 
-Counterpart of the JAX package's stark/pcs.py in its normal-memory mode
-(the low-memory mode, the column-blocked LDE programs and the mesh NTT
-dispatch are not ported):
+Counterpart of the JAX package's stark/pcs.py (the mesh NTT dispatch is
+not ported: the port proves on one card):
 
 - commit: evals over (log_n, shift) domains -> coset LDE onto
   GENERATOR*H_{2n} (blowup 2), committed in bit-reversed row order under one
-  Merkle MMCS batch.  The natural-order LDEs are kept for the quotient,
-  the openings and the queries.
-- open: opened values evaluated barycentrically from the LDEs; the
-  transcript observes them, samples the batch-combination alpha, builds
-  one reduced opening per height and runs FRI.  Query proofs bundle the
-  input-batch Merkle openings and the FRI layer walks.
+  Merkle MMCS batch.  At LDE heights >= 2^ZKBF_BLK_LOG rows each matrix's
+  LDE runs in blocks of ZKBF_BLK_W columns (`_lde_spans`); the digest layer
+  hashes the blocks in matrix order, which is the row concatenation.
+  - normal mode: the natural-order LDEs are kept (blocks joined) for the
+    quotient, the openings and the queries;
+  - low-memory mode (`_lowmem_for`: ZKBF_LOWMEM, or a batch whose tallest
+    LDE reaches 2^ZKBF_LOWMEM_LOG rows): only the eval matrices, the tree
+    plan and the root are kept.  The quotient recomputes a chip's LDE
+    blocks (`PcsProverData.lde_blocks`), and the queries rebuild a round's
+    blocks and tree, one round at a time.
+- open: opened values evaluated barycentrically from the LDEs (normal
+  rounds) or from the eval matrices on their source domains (low-memory
+  rounds); the transcript observes them, samples the batch-combination
+  alpha, builds one reduced opening per height and runs FRI.  A low-memory
+  round's part of a reduced opening is q = (g - g(z)) / (x - z) on the
+  source domain, carried to the LDE domain by one 4-column LDE.  Query
+  proofs bundle the input-batch Merkle openings and the FRI layer walks.
 - verify: full host-side replay (numpy), copied from the JAX package.
+
+Proofs are the same bytes in every mode.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
-from functools import lru_cache
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +48,7 @@ from . import ef_host as efh
 from .challenger import DuplexChallenger
 from .domains import Domain, domain_points_dev
 from .errors import InvalidOpeningArgument, OpeningShapeError
-from .fri import FriProof, fri_check_queries_np, fri_prove, fri_verify_transcript
+from .fri import FriProof, _pow_base_vec, fri_check_queries_np, fri_prove, fri_verify_transcript
 
 LOG_BLOWUP = 1
 
@@ -44,13 +56,30 @@ LOG_BLOWUP = 1
 @dataclass
 class PcsProverData:
     domains: List[Domain]
-    ldes: List[torch.Tensor]  # LDE evals over GENERATOR*H_2n, natural order
-    tree: mk.MerkleTree  # commits bit-reversed LDE rows
+    # LDE evals over GENERATOR*H_2n, natural order; None in low-memory mode
+    ldes: Optional[List[torch.Tensor]]
+    tree: mk.MerkleTree  # commits bit-reversed LDE rows (no flat in low-memory mode)
     sig: tuple  # per matrix (log_n, shift, width)
+    evals: Optional[List[torch.Tensor]] = None  # kept only in low-memory mode
+
+    @property
+    def lowmem(self) -> bool:
+        return self.ldes is None
 
     @property
     def root(self) -> np.ndarray:
         return self.tree.root
+
+    @property
+    def device(self) -> torch.device:
+        return (self.evals if self.lowmem else self.ldes)[0].device
+
+    def lde_blocks(self, i: int) -> List[torch.Tensor]:
+        """Column-blocked LDE of matrix i (recomputed in low-memory mode)."""
+        if not self.lowmem:
+            return [self.ldes[i]]
+        log_n, shift, _w = self.sig[i]
+        return _lde_blocks(self.evals[i], log_n, shift)
 
 
 def lde(evals: torch.Tensor, log_n: int, shift: int) -> torch.Tensor:
@@ -62,6 +91,44 @@ def lde(evals: torch.Tensor, log_n: int, shift: int) -> torch.Tensor:
     return nt.coset_lde(evals, LOG_BLOWUP, GENERATOR * pow(shift, P - 2, P) % P)
 
 
+def _blk_cfg() -> Tuple[int, int]:
+    """(ZKBF_BLK_LOG, ZKBF_BLK_W): LDEs of at least 2^ZKBF_BLK_LOG rows run
+    in blocks of ZKBF_BLK_W columns (defaults 23 and 8, as the JAX package)."""
+    return int(os.environ.get("ZKBF_BLK_LOG", "23")), int(os.environ.get("ZKBF_BLK_W", "8"))
+
+
+def _blocked_spans(width: int, bw: int):
+    return [(c0, min(c0 + bw, width)) for c0 in range(0, width, bw)]
+
+
+def _lde_spans(log_n: int, width: int):
+    """Column spans of one matrix's LDE: narrow blocks at blocked heights,
+    one full-width span otherwise."""
+    blk_log, blk_w = _blk_cfg()
+    if log_n + LOG_BLOWUP >= blk_log:
+        return _blocked_spans(width, blk_w)
+    return [(0, width)]
+
+
+def _lowmem_for(sig: tuple) -> bool:
+    """Low-memory commit mode: keep the evals, drop the LDEs and the tree's
+    flat buffer.  ZKBF_LOWMEM=1 forces it on, =0 off; otherwise it is on when
+    the batch's tallest LDE reaches 2^ZKBF_LOWMEM_LOG rows (default 23)."""
+    env = os.environ.get("ZKBF_LOWMEM", "")
+    if env == "1":
+        return True
+    if env == "0":
+        return False
+    thr = int(os.environ.get("ZKBF_LOWMEM_LOG", "23"))
+    return max(ln + LOG_BLOWUP for ln, _s, _w in sig) >= thr
+
+
+def _lde_blocks(evals: torch.Tensor, log_n: int, shift: int) -> List[torch.Tensor]:
+    """The LDE of each column span of `evals` (each span made contiguous)."""
+    return [lde(evals[:, c0:c1].contiguous(), log_n, shift)
+            for c0, c1 in _lde_spans(log_n, int(evals.shape[1]))]
+
+
 def _group_sigs(sig: tuple):
     """Group (index, matsig) by LDE height, preserving batch order within
     each group (the digest layer hashes same-height rows in batch order)."""
@@ -71,12 +138,33 @@ def _group_sigs(sig: tuple):
     return sorted(groups.items(), key=lambda kv: -kv[0])
 
 
+def _commit_blocks(sig: tuple, evals: Sequence[torch.Tensor], keep):
+    """LDE blocks and digest layers of a batch, one height group at a time;
+    keep(i, blocks) receives matrix i's blocks, which are dropped after
+    their group's digest layer unless it keeps them.  Returns the tree
+    plan and flat buffer."""
+    heights = tuple(1 << (ln + LOG_BLOWUP) for ln, _, _ in sig)
+    digests: Dict[int, torch.Tensor] = {}
+    for log_lde, members in _group_sigs(sig):
+        group = []
+        for i, (log_n, shift, _w) in members:
+            blocks = _lde_blocks(evals[i], log_n, shift)
+            keep(i, blocks)
+            group.extend(blocks)
+        digests[1 << log_lde] = mk.sponge_rows(group, bitrev=True)
+        del group, blocks
+    plan = mk.make_plan(heights)
+    return plan, mk.build_tree(plan, digests)
+
+
 def pcs_commit(
     domains_and_evals: Sequence[Tuple[Domain, torch.Tensor]], device=None
 ) -> Tuple[np.ndarray, PcsProverData]:
-    """Commit a batch of (2^log_n, W) canonical eval matrices: LDE each,
-    hash each LDE-height group's bit-reversed rows into its digest layer,
-    walk the tree.  Runs on the card unless device="cpu"."""
+    """Commit a batch of (2^log_n, W) canonical eval matrices: LDE each (in
+    column blocks at blocked heights), hash each LDE-height group's
+    bit-reversed rows into its digest layer, walk the tree.  In low-memory
+    mode only the evals, the plan and the root are kept.  Runs on the card
+    unless device="cpu"."""
     device = resolve_device(device)
     domains = [d for d, _ in domains_and_evals]
     evals = [xf.as_field_tensor(e, device) for _, e in domains_and_evals]
@@ -84,21 +172,24 @@ def pcs_commit(
         if e.dim() != 2 or e.shape[0] != d.size:
             raise ValueError(f"evals of shape {tuple(e.shape)} do not fit {d}")
     sig = tuple((d.log_n, d.shift, int(e.shape[1])) for d, e in zip(domains, evals))
-    heights = tuple(1 << (ln + LOG_BLOWUP) for ln, _, _ in sig)
+
+    if _lowmem_for(sig):
+        plan, flat = _commit_blocks(sig, evals, lambda i, blocks: None)
+        root = mk.root_of(plan, flat)
+        del flat  # rebuilt round by round at query time
+        tree = mk.MerkleTree(matrices=None, plan=plan, flat=None, root=root, bitrev=True)
+        return root, PcsProverData(domains=domains, ldes=None, tree=tree, sig=sig, evals=evals)
 
     ldes: List[torch.Tensor] = [None] * len(sig)
-    digests: Dict[int, torch.Tensor] = {}
-    for log_lde, members in _group_sigs(sig):
-        for i, (log_n, shift, _w) in members:
-            ldes[i] = lde(evals[i], log_n, shift)
-        digests[1 << log_lde] = mk.sponge_rows([ldes[i] for i, _ms in members], bitrev=True)
 
-    plan = mk.make_plan(heights)
-    flat = mk.build_tree(plan, digests)
+    def keep(i, blocks):
+        ldes[i] = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=1)
+
+    plan, flat = _commit_blocks(sig, evals, keep)
     tree = mk.MerkleTree(
         matrices=list(ldes), plan=plan, flat=flat, root=mk.root_of(plan, flat), bitrev=True
     )
-    return tree.root, PcsProverData(domains=domains, ldes=list(ldes), tree=tree, sig=sig)
+    return tree.root, PcsProverData(domains=domains, ldes=ldes, tree=tree, sig=sig)
 
 
 # ---------------------------------------------------------------------------
@@ -214,6 +305,19 @@ def _bary_factor(log_m: int, shift: int, z: tuple) -> tuple:
     return efh.neg(efh.mul_base(num, den_inv))
 
 
+def ro_src_accum(ro, mats_and_aps, s: tuple, z: tuple, log_n: int, shift: int):
+    """A low-memory sub-unit's part of a reduced opening, from its members'
+    evals on the source domain shift*H_n: q = (g - S) * inv(x - z) there,
+    g = sum_k alpha^k f_k and S = g(z) (an exact division), then ONE 4-column
+    LDE onto GENERATOR*H_2n, added into ro (None starts from zero).  The
+    same values as ro_accum over the members' LDEs."""
+    device = mats_and_aps[0][0].device
+    pts = domain_points_dev(log_n, shift, device)
+    q = ro_accum(xe.ezeros((1 << log_n,), device=device), mats_and_aps, s, _inv_x_minus_z(pts, z))
+    contrib = xe.from_array(lde(xe.to_array(q), log_n, shift))
+    return contrib if ro is None else xe.eadd(ro, contrib)
+
+
 def pcs_open(
     rounds: Sequence[Tuple[PcsProverData, List[List[tuple]]]],
     challenger: DuplexChallenger,
@@ -224,29 +328,45 @@ def pcs_open(
     """Open rounds at EF points.
 
     rounds: (data, points_per_matrix) where points_per_matrix[i] is the list
-    of EF4 host tuples for matrix i.  Returns (opened_values, PcsProof);
-    opened_values[r][i][p] = list of EF tuples per column."""
+    of EF4 host tuples for matrix i.  Low-memory rounds (data.lowmem) are
+    evaluated from their eval matrices on their source domains and rebuild
+    their LDEs and tree at query time, one round at a time.  Returns
+    (opened_values, PcsProof); opened_values[r][i][p] = list of EF tuples per
+    column."""
     timings = {} if timings is None else timings
     t0 = time.time()
-    device = rounds[0][0].ldes[0].device
+    device = rounds[0][0].device
 
-    # 1. Opened values, barycentric, one evaluation per (LDE height, point).
+    # 1. Opened values, barycentric, one evaluation per unit: the normal
+    # members of an (LDE height, point) group on the LDE coset, and its
+    # low-memory members per source domain (log_n, shift).
     zmap: Dict[tuple, int] = {}
     sig = _open_sig(rounds, zmap)
     z_by_index = {zi: z for z, zi in zmap.items()}
-    group_list = _open_groups(sig)
+    units = []  # (log_m, shift, zi, members, lowmem)
+    for (log_h, zi), members in _open_groups(sig):
+        normal = [(r, i, pi) for r, i, pi in members if not rounds[r][0].lowmem]
+        if normal:
+            units.append((log_h, GENERATOR, zi, tuple(normal), False))
+        by_dom: Dict[tuple, list] = {}
+        for r, i, pi in members:
+            if rounds[r][0].lowmem:
+                log_n, shift, _w = rounds[r][0].sig[i]
+                by_dom.setdefault((log_n, shift), []).append((r, i, pi))
+        for (log_n, shift), ms in sorted(by_dom.items()):
+            units.append((log_n, shift, zi, tuple(ms), True))
     pieces = []
-    for (log_h, zi), members in group_list:
-        mats = [rounds[r][0].ldes[i] for r, i, _pi in members]
-        pts = domain_points_dev(log_h, GENERATOR, device)
+    for log_m, shift, zi, members, lowmem in units:
+        mats = [rounds[r][0].evals[i] if lowmem else rounds[r][0].ldes[i] for r, i, _pi in members]
+        pts = domain_points_dev(log_m, shift, device)
         pieces.append(open_eval_group(mats, z_by_index[zi], pts))
     raw = [p.cpu().numpy() for p in pieces]
 
     opened_values = [
         [[None] * len(pts) for pts in points_per_mat] for _, points_per_mat in rounds
     ]
-    for ys_raw, ((log_h, zi), members) in zip(raw, group_list):
-        factor = _bary_factor(log_h, GENERATOR, z_by_index[zi])
+    for ys_raw, (log_m, shift, zi, members, _lm) in zip(raw, units):
+        factor = _bary_factor(log_m, shift, z_by_index[zi])
         off = 0
         for r, i, pi in members:
             w = rounds[r][0].sig[i][2]
@@ -266,38 +386,60 @@ def pcs_open(
                     challenger.observe_slice(list(y))
     alpha = challenger.sample_ext()
 
-    # 3. Reduced openings: one accumulation per (height, point) group.
+    # 3. Reduced openings: one accumulation per (height, point) group, split
+    # into an LDE sub-unit (normal members) and one sub-unit per source
+    # domain (low-memory members), each with its members' own alpha powers
+    # (offsets in member order) and its own S.
     alpha_pows_host = _ef_powers_host(alpha, _total_alpha_budget(rounds))
     ro: Dict[int, tuple] = {}
     for log_h, zi, members, c0, _w_total in _ro_plan(sig):
         z = z_by_index[zi]
-        s = efh.ZERO
-        mats_and_aps = []
+        sub_units: Dict[tuple, list] = {}
         off = c0
         for r, i, pi, w in members:
-            for k, y in enumerate(opened_values[r][i][pi]):
-                s = efh.add(s, efh.mul(alpha_pows_host[off + k], y))
-            ap = torch.tensor(alpha_pows_host[off : off + w], dtype=I64, device=device)
-            mats_and_aps.append((rounds[r][0].ldes[i], ap))
+            data = rounds[r][0]
+            key = ("src",) + data.sig[i][:2] if data.lowmem else ("lde",)
+            sub_units.setdefault(key, []).append((r, i, pi, w, off))
             off += w
-        pts = domain_points_dev(log_h, GENERATOR, device)
-        if log_h not in ro:
-            ro[log_h] = xe.ezeros((1 << log_h,), device=device)
-        ro[log_h] = ro_accum(ro[log_h], mats_and_aps, s, _inv_x_minus_z(pts, z))
+        for key, ms in sorted(sub_units.items()):
+            s = efh.ZERO
+            mats_and_aps = []
+            for r, i, pi, w, m_off in ms:
+                for k, y in enumerate(opened_values[r][i][pi]):
+                    s = efh.add(s, efh.mul(alpha_pows_host[m_off + k], y))
+                ap = torch.tensor(alpha_pows_host[m_off : m_off + w], dtype=I64, device=device)
+                data = rounds[r][0]
+                mats_and_aps.append((data.evals[i] if data.lowmem else data.ldes[i], ap))
+            if key[0] == "src":
+                ro[log_h] = ro_src_accum(ro.get(log_h), mats_and_aps, s, z, key[1], key[2])
+            else:
+                pts = domain_points_dev(log_h, GENERATOR, device)
+                acc = ro.get(log_h)
+                if acc is None:
+                    acc = xe.ezeros((1 << log_h,), device=device)
+                ro[log_h] = ro_accum(acc, mats_and_aps, s, _inv_x_minus_z(pts, z))
     timings["reduced_open"] = elapsed(t0, device)
     phases.add("reduced_open", timings["reduced_open"])
 
     # 4. FRI.
     fri_proof, indices = fri_prove(ro, challenger, LOG_BLOWUP, num_queries, pow_bits, timings)
 
-    # 5. Input-batch openings at the query indices.
+    # 5. Input-batch openings at the query indices: the normal rounds in one
+    # gather and transfer; each low-memory round rebuilt, opened and freed
+    # before the next, so at most one round's LDEs are resident.
     t0 = time.time()
     log_global = max(ro.keys())
     idx = np.asarray(indices, np.int64)
-    per_round = mk.open_many(
-        [d.tree for d, _p in rounds],
-        [idx >> (log_global - (d.tree.max_height.bit_length() - 1)) for d, _p in rounds],
-    )
+    per_round: List[Optional[tuple]] = [None] * len(rounds)
+    normal_ids = [r for r, (d, _p) in enumerate(rounds) if not d.lowmem]
+    if normal_ids:
+        trees = [rounds[r][0].tree for r in normal_ids]
+        opened = mk.open_many(trees, [idx >> (log_global - t.plan.log_max) for t in trees])
+        for r, o in zip(normal_ids, opened):
+            per_round[r] = o
+    for r, (data, _p) in enumerate(rounds):
+        if data.lowmem:
+            per_round[r] = _lowmem_round_openings(data, idx, log_global)
     query_input_openings = [
         [BatchOpening(opened_rows=[rw[q] for rw in rows], proof=paths[q]) for rows, paths in per_round]
         for q in range(num_queries)
@@ -305,6 +447,29 @@ def pcs_open(
     timings["query_open"] = time.time() - t0
     phases.add("query_open", timings["query_open"])
     return opened_values, PcsProof(fri=fri_proof, query_input_openings=query_input_openings)
+
+
+def _lowmem_round_openings(data: PcsProverData, idx: np.ndarray, log_global: int):
+    """Rebuild one low-memory round's LDE blocks and tree (the commit's own
+    steps), check its root against the committed one, and open it at the
+    query indices.  Returns (rows per matrix (Q, W_i), paths (Q, L, 8)) as
+    host uint32; everything rebuilt is freed on return."""
+    block_lists: Dict[int, list] = {}
+    plan, flat = _commit_blocks(data.sig, data.evals, block_lists.__setitem__)
+    root = mk.root_of(plan, flat)
+    if not np.array_equal(root, data.tree.root):
+        raise RuntimeError("low-memory rebuild produced a different Merkle root")
+    # The blocks in matrix order, as the tree's matrices: a block's height is
+    # its matrix's, so its row indices are the matrix's.
+    blocks = [b for i in range(len(data.sig)) for b in block_lists[i]]
+    tree = mk.MerkleTree(matrices=blocks, plan=plan, flat=flat, root=root, bitrev=True)
+    block_rows, paths = mk.open_many([tree], [idx >> (log_global - plan.log_max)])[0]
+    rows, off = [], 0
+    for i in range(len(data.sig)):
+        nb = len(block_lists[i])
+        rows.append(np.concatenate(block_rows[off : off + nb], axis=1))
+        off += nb
+    return rows, paths
 
 
 def _total_alpha_budget(rounds) -> int:
@@ -321,11 +486,6 @@ def _ef_powers_host(alpha: tuple, n: int) -> List[tuple]:
     for _ in range(n):
         out.append(efh.mul(out[-1], alpha))
     return out
-
-
-@lru_cache(maxsize=None)
-def _lde_points_host(log_h: int) -> np.ndarray:
-    return Domain(log_h, GENERATOR).points_host()
 
 
 # ---------------------------------------------------------------------------
@@ -427,10 +587,11 @@ def pcs_verify(
         for (domain, pts), row in zip(mats, rows):
             log_h = domain.log_n + LOG_BLOWUP
             if log_h not in x_cache:
-                idx_h = idx_arr >> (log_global - log_h)
-                x_cache[log_h] = np.asarray(
-                    _lde_points_host(log_h), dtype=np.uint64
-                )[nt.bit_reversal_perm(log_h)[idx_h]]
+                # the query points GENERATOR * g_h^rev(i), committed row i
+                rev = nt.reverse_bits(idx_arr >> (log_global - log_h), log_h)
+                x_cache[log_h] = (
+                    _pow_base_vec(xf.two_adic_root(log_h), rev) * np.uint64(GENERATOR) % u64p
+                )
             x = x_cache[log_h]  # (Q,)
             ro_val.setdefault(log_h, np.zeros((num_queries, 4), dtype=np.uint64))
             row64 = row % u64p  # (Q, W)

@@ -180,7 +180,7 @@ class CudaProver(MachineProver):
             [(d, p.reshape(p.shape[0], -1)) for d, p in zip(trace_domains, perm_traces)],
             device=device,
         )
-        perm_traces = None  # the committed round keeps the LDEs
+        perm_traces = None  # the committed round keeps the LDEs (or the evals)
         timings["perm_commit"] = elapsed(t0, device)
         phases.add("perm_commit", timings["perm_commit"])
 
@@ -199,16 +199,17 @@ class CudaProver(MachineProver):
             qdomain = trace_domains[i].create_disjoint_domain(1 << (log_degrees[i] + log_qd))
             # With blowup == log_qd == 1 the quotient domain IS the LDE domain.
             assert qdomain.log_n == log_degrees[i] + 1 and qdomain.shift == GENERATOR
-            prep_lde = None
-            if chip.name in pk.chip_ordering:
-                prep_lde = pk.data.ldes[pk.chip_ordering[chip.name]]
+            # The LDEs as column blocks: the resident LDE in normal mode;
+            # in low-memory mode blocks recomputed here, which die when this
+            # chip's quotient is done (no name outside the call holds them).
+            prep_index = pk.chip_ordering.get(chip.name)
             qvals = quotient_values(
                 chip,
                 trace_domains[i],
                 qdomain,
-                prep_lde,
-                main_data.ldes[i],
-                perm_data.ldes[i],
+                None if prep_index is None else pk.data.lde_blocks(prep_index),
+                main_data.lde_blocks(i),
+                perm_data.lde_blocks(i),
                 perm_challenges,
                 alpha,
                 cumulative_sums_host[i],

@@ -28,6 +28,7 @@ from . import ef_host as efh
 from .builder import HostEFBackend, NumericBuilder, TorchBackend, V
 from .chip import Chip
 from .domains import Domain, selectors_on_coset
+from .pcs import _lde_spans
 from .permutation import eval_permutation_constraints, host_beta_pows
 
 def constraint_ext_flags(chip: Chip) -> List[bool]:
@@ -64,12 +65,22 @@ def _fsum_axis0(x):
     return xf.fsum_small(x, axis=0)
 
 
+def _blk_col(blocks, i: int) -> torch.Tensor:
+    """Column i of a column-blocked matrix: a list of (W_b, Nq) blocks of
+    rows, one row per column."""
+    for b in blocks:
+        if i < b.shape[0]:
+            return b[i]
+        i -= b.shape[0]
+    raise IndexError(i)
+
+
 def quotient_values(
     chip: Chip,
     trace_domain: Domain,
     quotient_domain: Domain,
     prep_lde,
-    main_lde: torch.Tensor,
+    main_lde,
     perm_lde,
     perm_challenges,
     alpha: tuple,
@@ -77,11 +88,12 @@ def quotient_values(
 ) -> torch.Tensor:
     """(Nq, 4) canonical int32 quotient values on the quotient coset.
 
-    *_lde: (Nq, width) canonical LDEs on the coset (prep_lde None for chips
-    without a preprocessed trace; perm_lde None evaluates the AIR alone, the
-    uni-STARK case).  perm_challenges (alpha', beta), alpha and
+    *_lde: lists of (Nq, w_b) canonical column blocks of the LDEs on the
+    coset, in column order (`PcsProverData.lde_blocks`; prep_lde None for
+    chips without a preprocessed trace; perm_lde None evaluates the AIR
+    alone, the uni-STARK case).  perm_challenges (alpha', beta), alpha and
     cumulative_sum are exact host EF4 tuples."""
-    device = main_lde.device
+    device = main_lde[0].device
     nq = quotient_domain.size
     next_step = 1 << (quotient_domain.log_n - trace_domain.log_n)
     sels = selectors_on_coset(
@@ -89,29 +101,31 @@ def quotient_values(
     )
     be = TorchBackend
 
-    def columns(lde):
-        cols = lde.t().contiguous()  # (W, Nq): one contiguous row per column
-        return cols, torch.roll(cols, -next_step, dims=1)
+    def columns(blocks):
+        # (w_b, Nq) per block: one contiguous row per column
+        cols = [b.t().contiguous() for b in blocks]
+        return cols, [torch.roll(c, -next_step, dims=1) for c in cols]
 
     main, main_next = columns(main_lde)
     prep, prep_next = columns(prep_lde) if prep_lde is not None else (None, None)
     perm_kw = {}
     if perm_lde is not None:
         perm, perm_nxt = columns(perm_lde)
-        planes = lambda m, i: tuple(m[4 * i + k] for k in range(4))  # noqa: E731
+        perm_w = sum(c.shape[0] for c in perm) // 4
+        planes = lambda m, i: tuple(_blk_col(m, 4 * i + k) for k in range(4))  # noqa: E731
         perm_kw = dict(
-            perm_local=[V(be, planes(perm, i), True) for i in range(perm.shape[0] // 4)],
-            perm_next=[V(be, planes(perm_nxt, i), True) for i in range(perm.shape[0] // 4)],
+            perm_local=[V(be, planes(perm, i), True) for i in range(perm_w)],
+            perm_next=[V(be, planes(perm_nxt, i), True) for i in range(perm_w)],
             perm_challenges=[V(be, tuple(c), True) for c in perm_challenges],
             cumulative_sum=V(be, tuple(int(x) for x in cumulative_sum), True),
         )
     collected = []
     b = NumericBuilder(
         backend=be,
-        main_local=lambda i: V(be, main[i]),
-        main_next=lambda i: V(be, main_next[i]),
-        prep_local=(lambda i: V(be, prep[i])) if prep is not None else None,
-        prep_next=(lambda i: V(be, prep_next[i])) if prep is not None else None,
+        main_local=lambda i: V(be, _blk_col(main, i)),
+        main_next=lambda i: V(be, _blk_col(main_next, i)),
+        prep_local=(lambda i: V(be, _blk_col(prep, i))) if prep is not None else None,
+        prep_next=(lambda i: V(be, _blk_col(prep_next, i))) if prep is not None else None,
         is_first_row=V(be, sels["is_first_row"]),
         is_last_row=V(be, sels["is_last_row"]),
         is_transition=V(be, sels["is_transition"]),
@@ -159,3 +173,13 @@ def split_quotient_chunks(quotient_domain: Domain, qvals: torch.Tensor, n_chunks
     """Split coset evals into per-subdomain chunk matrices (p3 split_evals):
     chunk k = rows k::n_chunks, 4 base columns, on split_domains(n)[k]."""
     return [qvals[k::n_chunks].reshape(-1, 4).contiguous() for k in range(n_chunks)]
+
+
+def quotient_block_widths(chip, trace_log_n: int, prep_width) -> dict:
+    """The column-block widths of the LDEs that a low-memory prove passes to
+    `quotient_values` for (chip, height): blocks of ZKBF_BLK_W columns at
+    blocked LDE heights, one full-width block otherwise (stark/pcs.py
+    `_lde_spans`).  A normal-mode round passes its resident LDE whole."""
+    widths = {"main": chip.width, "perm": chip.permutation_width * 4, "prep": prep_width or 0}
+    return {k: tuple(c1 - c0 for c0, c1 in _lde_spans(trace_log_n, w)) if w else ()
+            for k, w in widths.items()}

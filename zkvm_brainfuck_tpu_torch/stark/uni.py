@@ -78,7 +78,8 @@ def uni_stark_prove(
 
     t0 = time.time()
     qdomain = tdomain.create_disjoint_domain(1 << (log_n + log_qd))
-    qvals = quotient_values(chip, tdomain, qdomain, None, data.ldes[0], None, None, alpha, None)
+    qvals = quotient_values(chip, tdomain, qdomain, None, data.lde_blocks(0), None, None, alpha,
+                            None)
     chunks = split_quotient_chunks(qdomain, qvals, 1 << log_qd)
     timings["quotient"] = elapsed(t0, device)
 
