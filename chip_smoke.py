@@ -61,6 +61,18 @@ result line:
    and with ZKBF_LOWMEM=0; both verify and give the same bytes.  For each:
    launches, peak device memory, phase seconds and the peak at the end of
    each phase.  And the host seconds of a cold bit_reversal_perm(23).
+14. mesh: proving over a row mesh (zkvm_brainfuck_tpu_torch/parallel/): the
+   cards present if there are at least two (a power of two), else a virtual
+   mesh of 4 x cuda:0.  `printa` under the mesh must reproduce the golden
+   vk, transcript and proof; the 2^20 - 1 cycle guest, set up and proved
+   under the mesh, must give the main phase's vk and proof bytes, verify,
+   and reject a tampered proof.  The launch counts are set to 0 just before
+   that setup and read after its verify: all six kernels must launch, and
+   the 4-step NTT's local transform (ntt_block_stages + ntt_stage) must run
+   on every shard.  Prints the phase seconds beside the main phase's, the
+   collective bytes of a prove by kind, the shard fractions of the traces,
+   LDEs, leaf digests, permutation traces and quotient values, and the
+   peak device memory.
 
 The last two lines of standard output are the `kernels` JSON object (its
 launch counts are those of the main path, phase 7) and the `ok` JSON object.
@@ -826,7 +838,8 @@ def phase_main(torch, dev, report):
         f"{k} {v:.4f}" for k, v in prove_bounds.items()))
     say(f"[main] NTT tables a prove reads, cached on the card: {len(twiddles)} Montgomery twiddle "
         f"blobs and {len(factors)} row-factor tables, {table_bytes / 2**20:.3f} MiB")
-    return counts, client, pk, lde_calls, prove_bounds, commits
+    single = {"vk": vk.to_bytes(), "proof": data, "phases": phases}
+    return counts, client, pk, lde_calls, prove_bounds, commits, single
 
 
 def phase_lde(torch, dev, report, lde_calls):
@@ -1218,6 +1231,156 @@ def phase_lowmem(torch, dev, report):
         f"tests/golden/*_printa_q84 (setup + prove {secs:.2f} s); launches {counts}")
 
 
+MESH_SHARDS = 4  # shards of the virtual mesh on one card
+
+
+@contextlib.contextmanager
+def capturing(targets):
+    """Inside the block, each (module, name, tag, pick) function passes its
+    calls on and appends (tag, pick(its result)) to the yielded list."""
+    seen, saved = [], []
+    for module, name, tag, pick in targets:
+        inner = getattr(module, name)
+
+        def wrapper(*args, _inner=inner, _tag=tag, _pick=pick, **kwargs):
+            out = _inner(*args, **kwargs)
+            seen.append((_tag, _pick(out)))
+            return out
+
+        saved.append((module, name, inner))
+        setattr(module, name, wrapper)
+    try:
+        yield seen
+    finally:
+        for module, name, inner in saved:
+            setattr(module, name, inner)
+
+
+def phase_mesh(torch, dev, report, single):
+    """printa and the 2^20 - 1 cycle guest over a row mesh; see the module
+    docstring, item 14."""
+    from zkvm_brainfuck_tpu_torch import ProverClient, guests
+    from zkvm_brainfuck_tpu_torch.ops import kernels as kn
+    from zkvm_brainfuck_tpu_torch.parallel import collectives as co
+    from zkvm_brainfuck_tpu_torch.parallel import sharded
+    from zkvm_brainfuck_tpu_torch.parallel.mesh import make_row_mesh, set_shard_mesh, shard_fraction
+    from zkvm_brainfuck_tpu_torch.sdk import CpuProver
+    from zkvm_brainfuck_tpu_torch.stark import machine as stark_machine
+    from zkvm_brainfuck_tpu_torch.stark import prover as stark_prover
+    from zkvm_brainfuck_tpu_torch.stark.errors import VerificationFailure
+    from zkvm_brainfuck_tpu_torch.stark.types import MachineProof
+
+    cards = torch.cuda.device_count()
+    if 2 <= cards <= 16 and cards & (cards - 1) == 0:
+        mesh = make_row_mesh(cards)
+    else:
+        mesh = make_row_mesh(devices=["cuda:0"] * MESH_SHARDS)
+    info = {"shards": mesh.size, "cards": mesh.cards, "virtual": mesh.cards < mesh.size}
+    say("[mesh] " + json.dumps(info))
+    report["mesh"] = dict(info)
+
+    config = recording_config()
+    client = ProverClient(CpuProver(config=config))
+    set_shard_mesh(mesh)
+    try:
+        t0 = time.time()
+        pk, vk = client.setup(guests.PRINTA_BF)
+        proof = client.prove(pk, b"").run()
+        secs = time.time() - t0
+    finally:
+        set_shard_mesh(None)
+    check_golden_printa(vk, config.challengers[0].record, proof.proof.proof.to_bytes(), "mesh")
+    client.verify(proof, vk)
+    report["mesh"]["printa_setup_and_prove_s"] = secs
+    say(f"[mesh] printa over {mesh.size} shards: vk, 1741 transcript entries and proof bytes equal "
+        f"tests/golden/*_printa_q84 (setup + prove {secs:.2f} s; on one device "
+        f"{report['golden_main']['setup_and_prove_s']:.2f} s)")
+
+    client = ProverClient()
+    targets = [(stark_prover, "place_rows", "traces", lambda out: out),
+               (stark_machine, "place_rows", "traces", lambda out: out),
+               (stark_machine, "pcs_commit", "commit", lambda out: out[1]),
+               (stark_prover, "pcs_commit", "commit", lambda out: out[1]),
+               (stark_prover, "generate_permutation_trace", "permutation traces", lambda out: out[0]),
+               (stark_prover, "quotient_values", "quotient values", lambda out: out)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kn.reset_counts()
+    co.reset_bytes()
+    set_shard_mesh(mesh)
+    try:
+        with capturing(targets) as seen, recording(
+                [(sharded, "local_transform", "local", lambda z, log_m, inverse, shard: shard)]) as local:
+            t0 = time.time()
+            pk, vk = client.setup(guests.bench_guest(SLICE_LOG))
+            torch.cuda.synchronize()
+            setup_s = time.time() - t0
+            setup_bytes = dict(co.BYTES)
+            after_setup = dict(kn.COUNTS)
+            co.reset_bytes()
+            proof = client.prove(pk, b"").run()
+            torch.cuda.synchronize()
+            prove_bytes = dict(co.BYTES)
+    finally:
+        set_shard_mesh(None)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.time()
+    client.verify(proof, vk)
+    verify_s = time.time() - t0
+    counts = dict(kn.COUNTS)
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the mesh path: {missing}")
+    shards = sorted({note for _tag, note in local})
+    if shards != list(range(mesh.size)) or counts["ntt_block_stages"] < len(local):
+        raise AssertionError(f"the 4-step NTT's local transform ran on shards {shards} "
+                             f"({len(local)} calls, {counts['ntt_block_stages']} block passes)")
+    data = proof.proof.proof.to_bytes()
+    if vk.to_bytes() != single["vk"]:
+        raise AssertionError("the mesh's vk differs from the main phase's")
+    if data != single["proof"]:
+        raise AssertionError("the mesh's 2^20 proof differs from the main phase's")
+    bad = copy.copy(proof)
+    bad.proof = copy.copy(proof.proof)
+    bad.proof.proof = MachineProof.from_bytes(data)
+    c = bad.proof.proof.shard_proof.opened_values[0].cumulative_sum
+    bad.proof.proof.shard_proof.opened_values[0].cumulative_sum = ((c[0] + 1) % 0x7F000001,) + c[1:]
+    try:
+        client.verify(bad, vk)
+    except VerificationFailure as e:
+        say(f"[mesh] tampered proof rejected: {type(e).__name__}: {e}")
+    else:
+        raise AssertionError("a tampered mesh proof was accepted")
+
+    fractions = {}
+    for tag, x in seen:
+        if tag == "commit":
+            fractions.setdefault("LDEs", []).extend(shard_fraction(v) for v in x.ldes)
+            fractions.setdefault("leaf digests", []).append(shard_fraction(x.tree.digests))
+        else:
+            fractions.setdefault(tag, []).append(shard_fraction(x))
+    worst = {k: max(v) for k, v in fractions.items()}
+    if any(v > 1.01 / mesh.size for v in worst.values()):
+        raise AssertionError(f"a row-sharded intermediate holds more than 1/{mesh.size}: {worst}")
+    phases = dict(proof.proof.timings, setup=setup_s, verify=verify_s)
+    prove_counts = {k: counts[k] - after_setup[k] for k in counts}
+    report["mesh"].update({"phases_s": phases, "single_phases_s": single["phases"], "peak_bytes": peak,
+                           "launches": counts, "launches_prove": prove_counts,
+                           "local_transform_calls": len(local),
+                           "collective_bytes_setup": setup_bytes, "collective_bytes_prove": prove_bytes,
+                           "shard_fraction_max": worst, "proof_bytes": len(data)})
+    say(f"[mesh] 2^{SLICE_LOG} - 1 cycles over {mesh.size} shards: the main phase's vk and "
+        f"{len(data)} proof bytes, verified; peak device memory {peak / 2**30:.3f} GiB")
+    say(f"[mesh] launches (setup + prove): {counts}; the 4-step NTT's local transform ran "
+        f"{len(local)} times, on shards {shards}")
+    say(f"[mesh] launches (prove): {prove_counts}")
+    say("[mesh] phase seconds, mesh / single device (main phase): " + ", ".join(
+        f"{k} {v:.4f} / {single['phases'].get(k, float('nan')):.4f}" for k, v in phases.items()))
+    say(f"[mesh] collective bytes a prove: {prove_bytes}; in setup: {setup_bytes}")
+    say("[mesh] largest shard fraction: " + ", ".join(f"{k} {v:.4f}" for k, v in worst.items()))
+
+
 def main() -> int:
     import torch
 
@@ -1242,7 +1405,7 @@ def main() -> int:
     phase_golden(torch, dev, report)
     phase_golden_main(torch, dev, report)
     phase_slice(torch, dev, report)
-    counts, client, pk, lde_calls, prove_bounds, commits = phase_main(torch, dev, report)
+    counts, client, pk, lde_calls, prove_bounds, commits, single = phase_main(torch, dev, report)
     phase_lde(torch, dev, report, lde_calls)
     phase_profile(torch, dev, report, client, pk, prove_bounds, commits)
     del client, pk
@@ -1250,6 +1413,7 @@ def main() -> int:
     phase_profile_trace(torch, dev, report)
     phase_lowmem(torch, dev, report)
     phase_scale(torch, dev, report)
+    phase_mesh(torch, dev, report, single)
 
     line = {"kernels": [
         {

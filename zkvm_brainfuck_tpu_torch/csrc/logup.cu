@@ -561,6 +561,10 @@ entries_kernel(const int32_t* __restrict__ main, int w, const int32_t* __restric
 
 }  // namespace
 
+// The library links the CUDA runtime statically, so its current device is its
+// own: the Python wrappers set it to the tensors' device before a launch.
+extern "C" int zkbf_set_device(int device) { return (int)cudaSetDevice(device); }
+
 // Scratch words of zkbf_logup_trace for n rows: the tile counter (padded
 // to 16 bytes), then the aggregates and the inclusive prefixes of the
 // tiles, 4 words each.

@@ -310,6 +310,10 @@ int launch_stage(const int32_t* x, int32_t* out, const uint32_t* tw, int w, int 
 
 }  // namespace
 
+// The library links the CUDA runtime statically, so its current device is its
+// own: the Python wrappers set it to the tensors' device before a launch.
+extern "C" int zkbf_set_device(int device) { return (int)cudaSetDevice(device); }
+
 // Stages 1..k (k <= 10) of every 2^k-row block of the 2^log_n-row input
 // taken in bit-reversed row order.  x holds rows_in rows (rows >= rows_in
 // read as zero); factors (rows_in canonical values, or null) scale the input

@@ -464,6 +464,10 @@ __global__ void __launch_bounds__(TREE_THREADS, TREE_MIN_BLOCKS) tree_kernel(Tre
 
 }  // namespace
 
+// The library links the CUDA runtime statically, so its current device is its
+// own: the Python wrappers set it to the tensors' device before a launch.
+extern "C" int zkbf_set_device(int device) { return (int)cudaSetDevice(device); }
+
 extern "C" int zkbf_p2_set_constants(const uint32_t* rc_ext, const uint32_t* rc_int,
                                      const uint32_t* diag) {
   cudaError_t e = cudaMemcpyToSymbol(c_rc_ext, rc_ext, sizeof(uint32_t) * 8 * WIDTH);

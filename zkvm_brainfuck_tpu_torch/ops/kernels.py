@@ -3,7 +3,11 @@
 Each `csrc/*.cu` file is a shared library with a plain C interface: every
 launcher takes device pointers, sizes and a `cudaStream_t`, launches on that
 stream, and returns `cudaGetLastError()`.  The libraries are built and
-loaded at first launch (`build.py`), never at import.
+loaded at first launch (`build.py`), never at import.  A library links the
+CUDA runtime statically, so its current device is its own: `lib(source,
+device)` sets it to the device of the tensors about to be launched on
+(`zkbf_set_device`), and uploads the Poseidon2 constants to each device
+once.
 
 `COUNTS[name]` is incremented by the wrapper of kernel `name` each time it
 launches that kernel, and nowhere else.
@@ -27,18 +31,21 @@ COUNTS: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_CONSTANTS_ON: set = set()  # (id of the library, device index) holding the Poseidon2 constants
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = {
     "ntt.cu": {
+        "zkbf_set_device": [_I],
         # (x, out, tw, factors, rows_in, log_n, w, k, stream)
         "zkbf_ntt_block_stages": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         # (x, out, tw, log_n, w, first, last, stream)
         "zkbf_ntt_stage": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
     "poseidon2.cu": {
+        "zkbf_set_device": [_I],
         # (rc_ext[8*16], rc_int[13], diag[16]) Montgomery constants, host arrays
         "zkbf_p2_set_constants": [_P, _P, _P],
         # (mat ptrs, widths, n_mats, out, h, log_h, bitrev, stream)
@@ -49,6 +56,7 @@ _ARGTYPES = {
         "zkbf_p2_tree": [_P, _P, _P, _I, _P, _P, _I, _P],
     },
     "logup.cu": {
+        "zkbf_set_device": [_I],
         # (main, w, prep, pw, n, desc, desc_len, chal, n_chal, out, csum, scratch,
         #  scratch_words, n_inter, batch, nb, stream)
         "zkbf_logup_trace": [_P, _I, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _L, _I, _I, _I, _P],
@@ -66,8 +74,11 @@ def reset_counts() -> None:
         COUNTS[k] = 0
 
 
-def lib(source: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<source>`, built on first use."""
+def lib(source: str, device=None) -> ctypes.CDLL:
+    """The loaded library of `csrc/<source>` (built on first use), its
+    runtime's current device set to `device` (the current CUDA device by
+    default)."""
+    index = _index(device)
     with _LOCK:
         if source not in _LIBS:
             path = build.build_cuda([source])[source]
@@ -75,20 +86,31 @@ def lib(source: str) -> ctypes.CDLL:
             for fn, argtypes in _ARGTYPES[source].items():
                 getattr(handle, fn).argtypes = argtypes
                 getattr(handle, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
-            if source == "poseidon2.cu":
-                from .poseidon2 import montgomery_constants
-
-                arrays = [
-                    (ctypes.c_uint32 * len(c))(*c) for c in montgomery_constants()
-                ]
-                check(handle.zkbf_p2_set_constants(*[ctypes.addressof(a) for a in arrays]),
-                      "zkbf_p2_set_constants")
             _LIBS[source] = handle
-        return _LIBS[source]
+        handle = _LIBS[source]
+        check(handle.zkbf_set_device(index), "zkbf_set_device")
+        if source == "poseidon2.cu" and (id(handle), index) not in _CONSTANTS_ON:
+            from .poseidon2 import montgomery_constants
+
+            arrays = [
+                (ctypes.c_uint32 * len(c))(*c) for c in montgomery_constants()
+            ]
+            check(handle.zkbf_p2_set_constants(*[ctypes.addressof(a) for a in arrays]),
+                  "zkbf_p2_set_constants")
+            _CONSTANTS_ON.add((id(handle), index))
+        return handle
 
 
-def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _index(device) -> int:
+    device = None if device is None else torch.device(device)
+    if device is None or device.index is None:
+        return torch.cuda.current_device()
+    return device.index
+
+
+def stream(device=None) -> int:
+    """The current stream of `device` (the current CUDA device by default)."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check(err: int, what: str) -> None:

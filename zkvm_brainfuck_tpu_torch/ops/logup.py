@@ -165,7 +165,7 @@ def logup_trace(table: LogupTable, main: torch.Tensor, prep, chal: torch.Tensor)
         kn.require_cuda_int32(prep, "logup_trace prep")
     desc = table.descriptor(main.device)
     n, w = main.shape
-    lib = kn.lib("logup.cu")
+    lib = kn.lib("logup.cu", main.device)
     words = lib.zkbf_logup_scratch_words(n)
     scratch = torch.empty(words, dtype=I32, device=main.device)
     perm = torch.empty((n, table.nb + 1, 4), dtype=I32, device=main.device)
@@ -174,7 +174,7 @@ def logup_trace(table: LogupTable, main: torch.Tensor, prep, chal: torch.Tensor)
         main.data_ptr(), w, prep.data_ptr() if prep is not None else None,
         prep.shape[1] if prep is not None else 0, n, desc.data_ptr(), desc.shape[0],
         chal.data_ptr(), chal.shape[0], perm.data_ptr(), csum.data_ptr(), scratch.data_ptr(),
-        words, table.n_inter, table.batch, table.nb, kn.stream(),
+        words, table.n_inter, table.batch, table.nb, kn.stream(main.device),
     )
     kn.check(err, "logup_trace")
     kn.COUNTS["logup_entries"] += 1

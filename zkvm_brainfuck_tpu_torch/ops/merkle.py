@@ -143,9 +143,9 @@ def build_tree(plan: TreePlan, digests_by_height: Dict[int, torch.Tensor]) -> to
         *[digests_by_height[inject[i]].data_ptr() if i in inject else None
           for i in range(plan.log_max + 1)])
     kn.check(
-        kn.lib("poseidon2.cu").zkbf_p2_tree(
+        kn.lib("poseidon2.cu", top.device).zkbf_p2_tree(
             top.data_ptr(), flat.data_ptr(), counters.data_ptr(), n_counters,
-            ctypes.addressof(offs), ctypes.addressof(ptrs), plan.log_max, kn.stream(),
+            ctypes.addressof(offs), ctypes.addressof(ptrs), plan.log_max, kn.stream(top.device),
         ),
         "poseidon2_tree",
     )
@@ -219,7 +219,8 @@ def open_batch(tree: MerkleTree, indices: np.ndarray):
 
 def open_many(trees: Sequence[MerkleTree], indices_list):
     """Openings of many trees: one index_select per matrix and per tree
-    flat buffer, then ONE host transfer of all pieces.  Returns, per tree,
+    flat buffer (a row-sharded tree gathers its pieces from the shards that
+    own them), then ONE host transfer of all pieces.  Returns, per tree,
     (rows per matrix (Q, W_m), paths (Q, log_max, 8)) as host uint32."""
     from . import ntt as nt
 
@@ -227,6 +228,11 @@ def open_many(trees: Sequence[MerkleTree], indices_list):
     plan_counts = []
     for tree, indices in zip(trees, indices_list):
         indices = np.asarray(indices, np.int64)
+        if not isinstance(tree, MerkleTree):
+            # a row-sharded tree (parallel/sharded.py ShardedMerkleTree)
+            pieces.extend(tree.query_pieces(indices))
+            plan_counts.append(len(tree.matrices))
+            continue
         plan = tree.plan
         for m in tree.matrices:
             log_h = int(m.shape[0]).bit_length() - 1

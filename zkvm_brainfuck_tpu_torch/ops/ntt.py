@@ -180,9 +180,9 @@ def ntt_block_stages(x: torch.Tensor, log_n: int, k: int, inverse: bool = False,
         kn.require_cuda_int32(factors, "ntt_block_stages factors", ndim=1)
     tw = twiddle_mont_dev(log_n, inverse, x.device)
     out = torch.empty((1 << log_n, w), dtype=I32, device=x.device)
-    err = kn.lib("ntt.cu").zkbf_ntt_block_stages(
+    err = kn.lib("ntt.cu", x.device).zkbf_ntt_block_stages(
         x.data_ptr(), out.data_ptr(), tw.data_ptr(),
-        None if factors is None else factors.data_ptr(), m, log_n, w, k, kn.stream()
+        None if factors is None else factors.data_ptr(), m, log_n, w, k, kn.stream(x.device)
     )
     kn.check(err, "ntt_block_stages")
     kn.COUNTS["ntt_block_stages"] += 1
@@ -203,8 +203,8 @@ def ntt_stage(x: torch.Tensor, first: int, last: int, inverse: bool = False) -> 
         return x
     kn.require_cuda_int32(x, "ntt_stage")
     tw = twiddle_mont_dev(log_n, inverse, x.device)
-    err = kn.lib("ntt.cu").zkbf_ntt_stage(
-        x.data_ptr(), x.data_ptr(), tw.data_ptr(), log_n, w, first, last, kn.stream()
+    err = kn.lib("ntt.cu", x.device).zkbf_ntt_stage(
+        x.data_ptr(), x.data_ptr(), tw.data_ptr(), log_n, w, first, last, kn.stream(x.device)
     )
     kn.check(err, "ntt_stage")
     kn.COUNTS["ntt_stage"] += 1

@@ -239,11 +239,11 @@ def hash_rows(mats: Union[torch.Tensor, Sequence[torch.Tensor]], bitrev: bool = 
     out = torch.empty((h, OUT), dtype=I32, device=mats[0].device)
     ptrs = (ctypes.c_void_p * len(mats))(*[m.data_ptr() for m in mats])
     widths = (ctypes.c_int * len(mats))(*[int(m.shape[1]) for m in mats])
-    lib = kn.lib("poseidon2.cu")
+    lib = kn.lib("poseidon2.cu", out.device)
     kn.check(
         lib.zkbf_p2_hash_rows(
             ctypes.addressof(ptrs), ctypes.addressof(widths), len(mats),
-            out.data_ptr(), h, h.bit_length() - 1, int(bitrev), kn.stream(),
+            out.data_ptr(), h, h.bit_length() - 1, int(bitrev), kn.stream(out.device),
         ),
         "poseidon2_hash_rows",
     )
@@ -271,9 +271,10 @@ def permute(states: torch.Tensor, out_cols: int = WIDTH) -> torch.Tensor:
     n = int(states.shape[0])
     out = torch.empty((n, out_cols), dtype=I32, device=states.device)
     if n:
-        lib = kn.lib("poseidon2.cu")
+        lib = kn.lib("poseidon2.cu", states.device)
         kn.check(
-            lib.zkbf_p2_permute(states.data_ptr(), out.data_ptr(), n, out_cols, kn.stream()),
+            lib.zkbf_p2_permute(states.data_ptr(), out.data_ptr(), n, out_cols,
+                                kn.stream(states.device)),
             "poseidon2_permute",
         )
         kn.COUNTS["poseidon2_permute"] += 1

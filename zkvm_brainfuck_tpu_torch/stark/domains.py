@@ -85,32 +85,42 @@ class Domain:
 
 
 @lru_cache(maxsize=None)
-def domain_points_dev(log_n: int, shift: int, device: torch.device) -> torch.Tensor:
-    return xf.fmul(xf.powers_dev(xf.two_adic_root(log_n), 1 << log_n, device), shift)
+def domain_points_dev(log_n: int, shift: int, device: torch.device, row0: int = 0,
+                      rows=None) -> torch.Tensor:
+    """Points shift * g^i of the domain for i in [row0, row0 + rows) (all of
+    them by default: a shard of a mesh asks for its own rows)."""
+    g = xf.two_adic_root(log_n)
+    rows = (1 << log_n) - row0 if rows is None else rows
+    return xf.fmul(xf.powers_dev(g, rows, device), shift * pow(g, row0, P) % P)
 
 
 @lru_cache(maxsize=None)
-def selectors_on_coset(trace_log_n: int, coset_log_n: int, coset_shift: int, device):
+def selectors_on_coset(trace_log_n: int, coset_log_n: int, coset_shift: int, device,
+                       row0: int = 0, rows=None):
     """Selectors of the trace domain H_n (shift 1) over a larger coset, as
     canonical int32 tensors built on `device` (values of the JAX package's
-    selectors_on_coset / selectors_on_coset_dev).  Z_H is periodic with
-    period = coset size / n, so its inversion runs on that many lanes."""
+    selectors_on_coset / selectors_on_coset_dev), at the coset rows [row0,
+    row0 + rows) (all by default).  Z_H is periodic with period = coset size
+    / n, so its inversion runs on that many lanes."""
     assert coset_shift != 1
     device = torch.device(device)
     n = 1 << trace_log_n
+    rows = (1 << coset_log_n) - row0 if rows is None else rows
     g_c = xf.two_adic_root(coset_log_n)
-    x = domain_points_dev(coset_log_n, coset_shift, device)
+    x = domain_points_dev(coset_log_n, coset_shift, device, row0, rows)
     log_per = coset_log_n - trace_log_n
+    if row0 % (1 << log_per) or rows % (1 << log_per):
+        raise ValueError(f"selectors_on_coset: rows [{row0}, {row0 + rows}) split Z_H's period")
     zh_short = xf.fsub(
         xf.fmul(xf.powers_dev(pow(g_c, n, P), 1 << log_per, device), pow(coset_shift, n, P)), 1
     )
     g_inv = pow(xf.two_adic_root(trace_log_n), P - 2, P)
     first_den = xf.fadd(x, P - 1)
     last_den = xf.fadd(x, P - g_inv)
-    zh = zh_short.repeat(n)
+    zh = zh_short.repeat(rows >> log_per)
     return {
         "is_first_row": xf.fmul(zh, xf.finv(first_den)),
         "is_last_row": xf.fmul(zh, xf.finv(last_den)),
         "is_transition": last_den,
-        "inv_zeroifier": xf.finv(zh_short).repeat(n),
+        "inv_zeroifier": xf.finv(zh_short).repeat(rows >> log_per),
     }

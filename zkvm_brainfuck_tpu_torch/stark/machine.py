@@ -22,6 +22,7 @@ from ..core.record import ExecutionRecord
 from ..device import resolve_device
 from ..models.base import ByteDeps, ChipAir
 from ..ops.field import as_field_tensor
+from ..parallel.mesh import check_prover_device, current_mesh, place_rows
 from .challenger import DuplexChallenger
 from .chip import Chip
 from .domains import Domain
@@ -32,7 +33,7 @@ from .pcs import PcsProverData, pcs_commit
 @dataclass
 class StarkProvingKey:
     commit: np.ndarray  # (8,) canonical root
-    traces: List[torch.Tensor]  # preprocessed traces (canonical int32), sorted order
+    traces: list  # preprocessed traces (canonical int32; RowSharded on a mesh), sorted order
     data: PcsProverData
     chip_ordering: Dict[str, int]
     local_only: List[bool]
@@ -58,9 +59,12 @@ class StarkVerifyingKey:
 def commit_preprocessed(named, device) -> Tuple[StarkProvingKey, StarkVerifyingKey]:
     """pk and vk from (name, local_only, trace) triples (canonical values,
     numpy or torch): sort by (height desc, name asc), commit the traces in
-    one batch on `device`."""
+    one batch on `device` (row-sharded over the mesh, when one is set)."""
+    mesh = current_mesh()
+    if mesh is not None:
+        check_prover_device(mesh, device)
     named = sorted(
-        ((name, lo, as_field_tensor(t, device)) for name, lo, t in named),
+        ((name, lo, place_rows(as_field_tensor(t, device))) for name, lo, t in named),
         key=lambda t: (-t[2].shape[0], t[0]),
     )
     domains_and_traces = []

@@ -1,7 +1,6 @@
 """Two-adic FRI polynomial commitment scheme (the reference's TwoAdicFriPcs).
 
-Counterpart of the JAX package's stark/pcs.py (the mesh NTT dispatch is
-not ported: the port proves on one card):
+Counterpart of the JAX package's stark/pcs.py:
 
 - commit: evals over (log_n, shift) domains -> coset LDE onto
   GENERATOR*H_{2n} (blowup 2), committed in bit-reversed row order under one
@@ -23,8 +22,15 @@ not ported: the port proves on one card):
   source domain, carried to the LDE domain by one 4-column LDE.  Query
   proofs bundle the input-batch Merkle openings and the FRI layer walks.
 - verify: full host-side replay (numpy), copied from the JAX package.
+- on a mesh (row-sharded eval matrices, `parallel/`): the LDEs stay
+  row-sharded (`sharded_coset_lde`, the counterpart of `_ntt_dispatch`),
+  the digest layer is routed into contiguous leaf ranges and each shard
+  walks its subtree (`ShardedMerkleTree`); opened values are per-shard sums
+  added by a psum; reduced openings are computed per shard and gathered
+  once to the first device for FRI.  Low-memory and column-blocked rounds
+  are not sharded: a mesh with one raises NotImplementedError.
 
-Proofs are the same bytes in every mode.
+Proofs are the same bytes in every mode, with or without a mesh.
 """
 
 from __future__ import annotations
@@ -43,6 +49,9 @@ from ..ops import field as xf
 from ..ops import merkle as mk
 from ..ops import ntt as nt
 from ..ops.field import GENERATOR, I32, I64, P
+from ..parallel import collectives as co
+from ..parallel.mesh import RowMesh, RowSharded
+from ..parallel.sharded import build_sharded_tree, sharded_coset_lde, sharded_digest_layer
 from ..utils import phases
 from . import ef_host as efh
 from .challenger import DuplexChallenger
@@ -69,6 +78,11 @@ class PcsProverData:
     @property
     def root(self) -> np.ndarray:
         return self.tree.root
+
+    @property
+    def mesh(self) -> Optional[RowMesh]:
+        """The mesh of a row-sharded round (None on one device)."""
+        return self.ldes[0].mesh if self.ldes and isinstance(self.ldes[0], RowSharded) else None
 
     @property
     def device(self) -> torch.device:
@@ -164,9 +178,12 @@ def pcs_commit(
     column blocks at blocked heights), hash each LDE-height group's
     bit-reversed rows into its digest layer, walk the tree.  In low-memory
     mode only the evals, the plan and the root are kept.  Runs on the card
-    unless device="cpu"."""
+    unless device="cpu"; row-sharded evals stay row-sharded
+    (`_pcs_commit_sharded`)."""
     device = resolve_device(device)
     domains = [d for d, _ in domains_and_evals]
+    if any(isinstance(e, RowSharded) for _, e in domains_and_evals):
+        return _pcs_commit_sharded(domains, [e for _, e in domains_and_evals])
     evals = [xf.as_field_tensor(e, device) for _, e in domains_and_evals]
     for d, e in zip(domains, evals):
         if e.dim() != 2 or e.shape[0] != d.size:
@@ -189,6 +206,34 @@ def pcs_commit(
     tree = mk.MerkleTree(
         matrices=list(ldes), plan=plan, flat=flat, root=mk.root_of(plan, flat), bitrev=True
     )
+    return tree.root, PcsProverData(domains=domains, ldes=ldes, tree=tree, sig=sig)
+
+
+MESH_TODO = "not sharded yet (ROADMAP.md, Queue 1 item 3); prove this size without a mesh"
+
+
+def _pcs_commit_sharded(domains: List[Domain], evals: List[RowSharded]):
+    """pcs_commit of row-sharded eval matrices (one mesh): sharded LDEs, the
+    digest layer of each height group in contiguous leaf ranges, a subtree
+    walk a shard.  Root and LDE values equal the single-device commit's."""
+    if not all(isinstance(e, RowSharded) and e.mesh == evals[0].mesh for e in evals):
+        raise ValueError("pcs_commit: a batch mixes meshes or row-sharded and single-device matrices")
+    for d, e in zip(domains, evals):
+        if e.dim() != 2 or e.shape[0] != d.size:
+            raise ValueError(f"evals of shape {e.shape} do not fit {d}")
+    sig = tuple((d.log_n, d.shift, int(e.shape[1])) for d, e in zip(domains, evals))
+    if _lowmem_for(sig):
+        raise NotImplementedError(f"the low-memory PCS mode on a mesh is {MESH_TODO}")
+    if any(len(_lde_spans(ln, w)) > 1 for ln, _s, w in sig):
+        raise NotImplementedError(f"column-blocked LDEs on a mesh are {MESH_TODO}")
+    ldes: List[RowSharded] = [None] * len(sig)
+    digests: Dict[int, RowSharded] = {}
+    for log_lde, members in _group_sigs(sig):
+        for i, (log_n, shift, _w) in members:
+            ldes[i] = sharded_coset_lde(evals[i], LOG_BLOWUP, GENERATOR * pow(shift, P - 2, P) % P)
+        digests[1 << log_lde] = sharded_digest_layer([ldes[i] for i, _ms in members])
+    plan = mk.make_plan(tuple(1 << (ln + LOG_BLOWUP) for ln, _, _ in sig))
+    tree = build_sharded_tree(plan, digests, ldes)
     return tree.root, PcsProverData(domains=domains, ldes=ldes, tree=tree, sig=sig)
 
 
@@ -247,6 +292,17 @@ def open_eval_group(mats: Sequence[torch.Tensor], z: tuple, pts: torch.Tensor) -
     Output: (sum(widths), 4) canonical raw sums."""
     w = xe.emul_base(_inv_x_minus_z(pts, z), pts)
     return torch.cat([_weighted_col_sums(m, w) for m in mats])
+
+
+def _open_eval_sharded(mesh: RowMesh, mats: Sequence[RowSharded], z: tuple, log_m: int,
+                       shift: int) -> torch.Tensor:
+    """open_eval_group over row-sharded LDEs: each shard's raw sums over its
+    own points, added mod p by a psum (the order cannot change a value)."""
+    rows = (1 << log_m) // mesh.size
+    parts = [open_eval_group([m.blocks[k] for m in mats], z,
+                             domain_points_dev(log_m, shift, dev, k * rows, rows))
+             for k, dev in enumerate(mesh.devices)]
+    return co.psum(mesh, parts)[0]
 
 
 def _ro_plan(sig: tuple):
@@ -336,6 +392,10 @@ def pcs_open(
     timings = {} if timings is None else timings
     t0 = time.time()
     device = rounds[0][0].device
+    meshes = {data.mesh for data, _p in rounds}
+    if len(meshes) != 1:
+        raise ValueError("pcs_open: the rounds are not all on one mesh (or all unsharded)")
+    mesh = meshes.pop()
 
     # 1. Opened values, barycentric, one evaluation per unit: the normal
     # members of an (LDE height, point) group on the LDE coset, and its
@@ -358,6 +418,9 @@ def pcs_open(
     pieces = []
     for log_m, shift, zi, members, lowmem in units:
         mats = [rounds[r][0].evals[i] if lowmem else rounds[r][0].ldes[i] for r, i, _pi in members]
+        if mesh is not None:
+            pieces.append(_open_eval_sharded(mesh, mats, z_by_index[zi], log_m, shift))
+            continue
         pts = domain_points_dev(log_m, shift, device)
         pieces.append(open_eval_group(mats, z_by_index[zi], pts))
     raw = [p.cpu().numpy() for p in pieces]
@@ -389,7 +452,8 @@ def pcs_open(
     # 3. Reduced openings: one accumulation per (height, point) group, split
     # into an LDE sub-unit (normal members) and one sub-unit per source
     # domain (low-memory members), each with its members' own alpha powers
-    # (offsets in member order) and its own S.
+    # (offsets in member order) and its own S.  On a mesh each shard
+    # accumulates its own rows; the sums are gathered once, for FRI.
     alpha_pows_host = _ef_powers_host(alpha, _total_alpha_budget(rounds))
     ro: Dict[int, tuple] = {}
     for log_h, zi, members, c0, _w_total in _ro_plan(sig):
@@ -407,9 +471,13 @@ def pcs_open(
             for r, i, pi, w, m_off in ms:
                 for k, y in enumerate(opened_values[r][i][pi]):
                     s = efh.add(s, efh.mul(alpha_pows_host[m_off + k], y))
-                ap = torch.tensor(alpha_pows_host[m_off : m_off + w], dtype=I64, device=device)
+                ap = alpha_pows_host[m_off : m_off + w]
                 data = rounds[r][0]
                 mats_and_aps.append((data.evals[i] if data.lowmem else data.ldes[i], ap))
+            if mesh is not None:
+                ro[log_h] = _ro_accum_sharded(mesh, ro.get(log_h), mats_and_aps, s, z, log_h)
+                continue
+            mats_and_aps = [(m, torch.tensor(ap, dtype=I64, device=device)) for m, ap in mats_and_aps]
             if key[0] == "src":
                 ro[log_h] = ro_src_accum(ro.get(log_h), mats_and_aps, s, z, key[1], key[2])
             else:
@@ -418,6 +486,10 @@ def pcs_open(
                 if acc is None:
                     acc = xe.ezeros((1 << log_h,), device=device)
                 ro[log_h] = ro_accum(acc, mats_and_aps, s, _inv_x_minus_z(pts, z))
+    if mesh is not None:
+        ro = {log_h: xe.from_array(RowSharded(mesh, [xe.to_array(p) for p in parts],
+                                              (1 << log_h, 4)).gather())
+              for log_h, parts in ro.items()}
     timings["reduced_open"] = elapsed(t0, device)
     phases.add("reduced_open", timings["reduced_open"])
 
@@ -447,6 +519,19 @@ def pcs_open(
     timings["query_open"] = time.time() - t0
     phases.add("query_open", timings["query_open"])
     return opened_values, PcsProof(fri=fri_proof, query_input_openings=query_input_openings)
+
+
+def _ro_accum_sharded(mesh: RowMesh, acc, mats_and_aps, s: tuple, z: tuple, log_h: int):
+    """ro_accum on each shard's rows of the LDE coset; acc is the list of
+    per-shard EF planes (None starts from zero)."""
+    rows = (1 << log_h) // mesh.size
+    out = []
+    for k, dev in enumerate(mesh.devices):
+        pts = domain_points_dev(log_h, GENERATOR, dev, k * rows, rows)
+        start = xe.ezeros((rows,), device=dev) if acc is None else acc[k]
+        members = [(m.blocks[k], torch.tensor(ap, dtype=I64, device=dev)) for m, ap in mats_and_aps]
+        out.append(ro_accum(start, members, s, _inv_x_minus_z(pts, z)))
+    return out
 
 
 def _lowmem_round_openings(data: PcsProverData, idx: np.ndarray, log_global: int):

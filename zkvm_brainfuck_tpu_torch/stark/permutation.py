@@ -20,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 
 from ..ops import logup as lu
+from ..parallel.mesh import RowSharded
+from ..parallel.sharded import logup_trace_sharded
 from .chip import Chip
 from .lookup import Affine
 
@@ -54,12 +56,17 @@ def generate_permutation_trace(chip: Chip, prep, main, alpha_host, beta_host):
     """LogUp trace of one chip on main's device.
 
     prep/main: (N, PW) / (N, W) canonical int32 tensors (prep None for chips
-    without a preprocessed trace); alpha_host, beta_host: exact host EF4
-    tuples.  Returns (perm_trace (N, NB+1, 4) int32, cumulative_sum (4,)
-    int32 tensor on the device)."""
+    without a preprocessed trace), or both row-sharded over a mesh (the
+    kernel on each shard, then the cross-shard offsets); alpha_host,
+    beta_host: exact host EF4 tuples.  Returns (perm_trace (N, NB+1, 4)
+    int32, row-sharded like main, cumulative_sum (4,) int32 tensor on the
+    (first) device)."""
     table = logup_table(chip)
-    chal = lu.challenge_matrix(alpha_host, host_beta_pows(chip, beta_host), main.device)
-    return lu.logup_trace(table, main, prep, chal)
+    beta_pows = host_beta_pows(chip, beta_host)
+    if isinstance(main, RowSharded):
+        return logup_trace_sharded(table, main, prep,
+                                   lambda dev: lu.challenge_matrix(alpha_host, beta_pows, dev))
+    return lu.logup_trace(table, main, prep, lu.challenge_matrix(alpha_host, beta_pows, main.device))
 
 
 def eval_permutation_constraints(chip: Chip, b) -> None:

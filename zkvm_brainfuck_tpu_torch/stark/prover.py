@@ -11,6 +11,11 @@ Device/host split: trace, LogUp, quotient, NTT, Merkle and FRI-fold work
 runs on the device (the card, or the plain versions on the CPU when the
 prover is built with device="cpu"); the duplex challenger is host-side and
 touches only roots, cumulative sums and opened values.
+
+With a row mesh set (`set_shard_mesh`, parallel/mesh.py), every trace is
+placed row-sharded (`place_rows`) and the LDEs, Merkle leaves, LogUp
+traces and quotient values stay row-sharded; the prover's device must be
+the mesh's first device, and the proof is the same bytes.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from ..core.program import Program
 from ..core.record import ExecutionRecord
 from ..device import elapsed, resolve_device
 from ..ops.field import GENERATOR
+# set_shard_mesh and current_mesh are re-exported here, as in the JAX package
+from ..parallel.mesh import check_prover_device, current_mesh, place_rows, set_shard_mesh  # noqa: F401
 from ..utils import phases
 from .challenger import DuplexChallenger
 from .domains import Domain
@@ -82,6 +89,12 @@ class MachineProver:
         timings: Optional[Dict[str, float]] = None,
     ) -> MachineProof:
         timings = {} if timings is None else timings
+        mesh = current_mesh()
+        if mesh is not None:
+            check_prover_device(mesh, self.device)
+        if pk.data.mesh != mesh:
+            raise ValueError(f"the proving key was set up on mesh {pk.data.mesh}, the prove runs "
+                             f"on {mesh}: run setup under the prove's mesh")
         pk.observe_into(challenger)
         t0 = time.time()
         named_traces = self.generate_traces(record)
@@ -108,7 +121,7 @@ class CudaProver(MachineProver):
     def generate_traces(self, record: ExecutionRecord):
         deps = self.machine.generate_dependencies(record, device=self.device)
         return [
-            (chip.name, chip.air.generate_trace(record, deps, device=self.device))
+            (chip.name, place_rows(chip.air.generate_trace(record, deps, device=self.device)))
             for chip in self.machine.shard_chips(record)
         ]
 

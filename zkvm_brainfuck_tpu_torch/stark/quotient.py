@@ -24,6 +24,8 @@ import torch
 from ..ops import ext as xe
 from ..ops import field as xf
 from ..ops.field import I32, I64
+from ..parallel import collectives as co
+from ..parallel.mesh import RowSharded
 from . import ef_host as efh
 from .builder import HostEFBackend, NumericBuilder, TorchBackend, V
 from .chip import Chip
@@ -85,32 +87,82 @@ def quotient_values(
     perm_challenges,
     alpha: tuple,
     cumulative_sum,
-) -> torch.Tensor:
+):
     """(Nq, 4) canonical int32 quotient values on the quotient coset.
 
     *_lde: lists of (Nq, w_b) canonical column blocks of the LDEs on the
     coset, in column order (`PcsProverData.lde_blocks`; prep_lde None for
     chips without a preprocessed trace; perm_lde None evaluates the AIR
     alone, the uni-STARK case).  perm_challenges (alpha', beta), alpha and
-    cumulative_sum are exact host EF4 tuples."""
+    cumulative_sum are exact host EF4 tuples.  Row-sharded LDEs give
+    row-sharded values (`_quotient_sharded`)."""
+    if isinstance(main_lde[0], RowSharded):
+        return _quotient_sharded(chip, trace_domain, quotient_domain, prep_lde, main_lde, perm_lde,
+                                 perm_challenges, alpha, cumulative_sum)
     device = main_lde[0].device
     nq = quotient_domain.size
     next_step = 1 << (quotient_domain.log_n - trace_domain.log_n)
     sels = selectors_on_coset(
         trace_domain.log_n, quotient_domain.log_n, quotient_domain.shift, device
     )
-    be = TorchBackend
 
     def columns(blocks):
-        # (w_b, Nq) per block: one contiguous row per column
+        # (w_b, Nq) per block: one contiguous row per column; the next row
+        # is the coset column rolled by the blowup
+        if blocks is None:
+            return None
         cols = [b.t().contiguous() for b in blocks]
         return cols, [torch.roll(c, -next_step, dims=1) for c in cols]
 
-    main, main_next = columns(main_lde)
-    prep, prep_next = columns(prep_lde) if prep_lde is not None else (None, None)
+    return _quotient_rows(chip, columns(prep_lde), columns(main_lde), columns(perm_lde), sels, nq,
+                          device, perm_challenges, alpha, cumulative_sum)
+
+
+def _quotient_sharded(chip, trace_domain, quotient_domain, prep_lde, main_lde, perm_lde,
+                      perm_challenges, alpha, cumulative_sum) -> RowSharded:
+    """quotient_values over row-sharded LDEs: each shard evaluates its own
+    coset rows; its next rows are its rows shifted by the blowup plus a halo
+    of the right-hand neighbour's first rows (ppermute on the ring; the last
+    shard takes shard 0's), and its selectors are those of its row range."""
+    mesh = main_lde[0].mesh
+    nq = quotient_domain.size
+    rows = nq // mesh.size
+    next_step = 1 << (quotient_domain.log_n - trace_domain.log_n)
+    if rows < next_step:
+        raise ValueError(f"quotient: {rows} coset rows a shard, fewer than the next-row step")
+
+    def columns(blocks):
+        if blocks is None:
+            return [None] * mesh.size
+        per_shard = [([], []) for _ in range(mesh.size)]
+        for blk in blocks:
+            halos = co.ppermute(mesh, [b[:next_step] for b in blk.blocks], co.ring_next(mesh))
+            for k, b in enumerate(blk.blocks):
+                per_shard[k][0].append(b.t().contiguous())
+                per_shard[k][1].append(torch.cat([b[next_step:], halos[k]]).t().contiguous())
+        return per_shard
+
+    prep, main, perm = columns(prep_lde), columns(main_lde), columns(perm_lde)
+    out = []
+    for k, dev in enumerate(mesh.devices):
+        sels = selectors_on_coset(trace_domain.log_n, quotient_domain.log_n, quotient_domain.shift,
+                                  dev, k * rows, rows)
+        out.append(_quotient_rows(chip, prep[k], main[k], perm[k], sels, rows, dev,
+                                  perm_challenges, alpha, cumulative_sum))
+    return RowSharded(mesh, out, (nq, 4))
+
+
+def _quotient_rows(chip, prep_cols, main_cols, perm_cols, sels, nq, device, perm_challenges,
+                   alpha, cumulative_sum) -> torch.Tensor:
+    """The folded quotient at nq coset points: *_cols are (column rows, next
+    column rows) pairs of (w_b, nq) blocks (None where absent), sels the
+    selectors at those points."""
+    be = TorchBackend
+    main, main_next = main_cols
+    prep, prep_next = prep_cols if prep_cols is not None else (None, None)
     perm_kw = {}
-    if perm_lde is not None:
-        perm, perm_nxt = columns(perm_lde)
+    if perm_cols is not None:
+        perm, perm_nxt = perm_cols
         perm_w = sum(c.shape[0] for c in perm) // 4
         planes = lambda m, i: tuple(_blk_col(m, 4 * i + k) for k in range(4))  # noqa: E731
         perm_kw = dict(
@@ -133,7 +185,7 @@ def quotient_values(
         **perm_kw,
     )
     chip.eval(b)
-    if perm_lde is not None:
+    if perm_cols is not None:
         b.perm_beta_pows = [
             V(be, tuple(int(x) for x in row), True)
             for row in host_beta_pows(chip, perm_challenges[1])
@@ -169,9 +221,15 @@ def quotient_values(
     return xe.to_array(xe.emul_base(acc, sels["inv_zeroifier"]))
 
 
-def split_quotient_chunks(quotient_domain: Domain, qvals: torch.Tensor, n_chunks: int):
+def split_quotient_chunks(quotient_domain: Domain, qvals, n_chunks: int):
     """Split coset evals into per-subdomain chunk matrices (p3 split_evals):
-    chunk k = rows k::n_chunks, 4 base columns, on split_domains(n)[k]."""
+    chunk k = rows k::n_chunks, 4 base columns, on split_domains(n)[k].
+    Row-sharded values give row-sharded chunks (each shard's rows of a
+    chunk are its own rows k::n_chunks)."""
+    if isinstance(qvals, RowSharded):
+        return [RowSharded(qvals.mesh, [b[k::n_chunks].reshape(-1, 4).contiguous()
+                                        for b in qvals.blocks], (qvals.shape[0] // n_chunks, 4))
+                for k in range(n_chunks)]
     return [qvals[k::n_chunks].reshape(-1, 4).contiguous() for k in range(n_chunks)]
 
 
