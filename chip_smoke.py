@@ -63,16 +63,22 @@ result line:
    each phase.  And the host seconds of a cold bit_reversal_perm(23).
 14. mesh: proving over a row mesh (zkvm_brainfuck_tpu_torch/parallel/): the
    cards present if there are at least two (a power of two), else a virtual
-   mesh of 4 x cuda:0.  `printa` under the mesh must reproduce the golden
-   vk, transcript and proof; the 2^20 - 1 cycle guest, set up and proved
-   under the mesh, must give the main phase's vk and proof bytes, verify,
-   and reject a tampered proof.  The launch counts are set to 0 just before
-   that setup and read after its verify: all six kernels must launch, and
-   the 4-step NTT's local transform (ntt_block_stages + ntt_stage) must run
-   on every shard.  Prints the phase seconds beside the main phase's, the
-   collective bytes of a prove by kind, the shard fractions of the traces,
-   LDEs, leaf digests, permutation traces and quotient values, and the
-   peak device memory.
+   mesh of 4 x cuda:0.  `printa` under the mesh, by default and with
+   ZKBF_LOWMEM=1, ZKBF_BLK_LOG=4, ZKBF_BLK_W=4, must reproduce the golden
+   vk, transcript and proof.  Then the 2^20 - 1 and the 2^22 - 1 cycle
+   guests, each set up and proved under the mesh with the default settings
+   (at 2^22 the low-memory main, permutation and quotient rounds with
+   8-column blocks), must give the main phase's and the scale phase's
+   default vk and proof bytes, verify, and reject a tampered proof.  For
+   each, the launch counts are set to 0 just before the setup and read
+   after the verify: all six kernels must launch, and the 4-step NTT's
+   local transform (ntt_block_stages + ntt_stage) must run on every shard;
+   the traces, the kept LDEs or evals, every LDE block made, the leaf
+   digests, the permutation traces and the quotient values must hold at
+   most 1.01/d of their rows a shard.  Prints the phase seconds beside the
+   single-device prove's, the peak at the end of each phase, the
+   collective bytes of a prove by kind, the shard fractions and the peak
+   device memory.
 
 The last two lines of standard output are the `kernels` JSON object (its
 launch counts are those of the main path, phase 7) and the `ok` JSON object.
@@ -289,6 +295,34 @@ def recording(targets):
         yield calls
     finally:
         for module, name, inner in saved:
+            setattr(module, name, inner)
+
+
+@contextlib.contextmanager
+def stream_events(torch, targets):
+    """Inside the block, each (module, name, tag) function records a CUDA
+    event on the current stream before and after each call.  Yields a dict
+    tag -> list of (start, end) events; after a synchronize, the sum of
+    their elapsed times is the stream's time inside those calls (their
+    device work and any gap the host leaves the stream idle)."""
+    pairs, saved = {tag: [] for _m, _n, tag in targets}, []
+    for module, name, tag in targets:
+        inner = getattr(module, name)
+
+        def wrapper(*args, _inner=inner, _tag=tag, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = _inner(*args, **kwargs)
+            end.record()
+            pairs[_tag].append((start, end))
+            return out
+
+        saved.append((module, name, inner))
+        setattr(module, name, wrapper)
+    try:
+        yield pairs
+    finally:
+        for module, name, inner in reversed(saved):
             setattr(module, name, inner)
 
 
@@ -1136,7 +1170,8 @@ def phase_scale(torch, dev, report):
     peak device memory, the phase seconds and the peak at the end of each
     phase.  Also the host seconds of a cold bit_reversal_perm(23), the
     table that query_open built before the query indices were reversed
-    directly."""
+    directly.  Returns the default mode's vk and proof bytes, phase seconds
+    and phase peaks, which the mesh phase must match."""
     from zkvm_brainfuck_tpu_torch import ProverClient, guests
     from zkvm_brainfuck_tpu_torch.ops import kernels as kn
     from zkvm_brainfuck_tpu_torch.ops import ntt as nt
@@ -1152,7 +1187,7 @@ def phase_scale(torch, dev, report):
     torch.cuda.synchronize()
     setup_s = time.time() - t0
     report["scale"] = {"log_cycles": SCALE_LOG, "bit_reversal_perm_23_s": table_s, "setup_s": setup_s}
-    proofs = {}
+    proofs, default = {}, None
     for mode, env in (("default (low-memory)", None), ("ZKBF_LOWMEM=0", "0")):
         if env is not None:
             os.environ["ZKBF_LOWMEM"] = env
@@ -1177,6 +1212,9 @@ def phase_scale(torch, dev, report):
             raise AssertionError(f"kernels not launched by the {mode} 2^{SCALE_LOG} prove: {missing}")
         proofs[mode] = proof.proof.proof.to_bytes()
         phases = dict(proof.proof.timings, verify=verify_s)
+        if default is None:
+            default = {"vk": vk.to_bytes(), "proof": proofs[mode],
+                       "phases": dict(phases, setup=setup_s), "phase_peaks": seen}
         report["scale"][mode] = {"peak_bytes": peak, "phases_s": phases, "launches": counts,
                                  "phase_peaks": [[n, s, b] for n, s, b in seen]}
         say(f"[scale] {mode}: 2^{SCALE_LOG} - 1 cycles proved and verified; peak device memory "
@@ -1190,6 +1228,7 @@ def phase_scale(torch, dev, report):
     if a != b:
         raise AssertionError("the low-memory and normal 2^22 proofs differ")
     say(f"[scale] the two modes' proofs are the same {len(a)} bytes")
+    return default
 
 
 def phase_lowmem(torch, dev, report):
@@ -1256,19 +1295,16 @@ def capturing(targets):
             setattr(module, name, inner)
 
 
-def phase_mesh(torch, dev, report, single):
-    """printa and the 2^20 - 1 cycle guest over a row mesh; see the module
-    docstring, item 14."""
+MESH_PRINTA_ENVS = (("default", {}),
+                    ("low-memory blocked", {"ZKBF_LOWMEM": "1", "ZKBF_BLK_LOG": "4", "ZKBF_BLK_W": "4"}))
+
+
+def phase_mesh(torch, dev, report, single, scale):
+    """printa in two modes, then the 2^20 - 1 and 2^22 - 1 cycle guests, over
+    a row mesh; see the module docstring, item 14."""
     from zkvm_brainfuck_tpu_torch import ProverClient, guests
-    from zkvm_brainfuck_tpu_torch.ops import kernels as kn
-    from zkvm_brainfuck_tpu_torch.parallel import collectives as co
-    from zkvm_brainfuck_tpu_torch.parallel import sharded
-    from zkvm_brainfuck_tpu_torch.parallel.mesh import make_row_mesh, set_shard_mesh, shard_fraction
+    from zkvm_brainfuck_tpu_torch.parallel.mesh import make_row_mesh, set_shard_mesh
     from zkvm_brainfuck_tpu_torch.sdk import CpuProver
-    from zkvm_brainfuck_tpu_torch.stark import machine as stark_machine
-    from zkvm_brainfuck_tpu_torch.stark import prover as stark_prover
-    from zkvm_brainfuck_tpu_torch.stark.errors import VerificationFailure
-    from zkvm_brainfuck_tpu_torch.stark.types import MachineProof
 
     cards = torch.cuda.device_count()
     if 2 <= cards <= 16 and cards & (cards - 1) == 0:
@@ -1279,68 +1315,127 @@ def phase_mesh(torch, dev, report, single):
     say("[mesh] " + json.dumps(info))
     report["mesh"] = dict(info)
 
-    config = recording_config()
-    client = ProverClient(CpuProver(config=config))
-    set_shard_mesh(mesh)
-    try:
-        t0 = time.time()
-        pk, vk = client.setup(guests.PRINTA_BF)
-        proof = client.prove(pk, b"").run()
-        secs = time.time() - t0
-    finally:
-        set_shard_mesh(None)
-    check_golden_printa(vk, config.challengers[0].record, proof.proof.proof.to_bytes(), "mesh")
-    client.verify(proof, vk)
-    report["mesh"]["printa_setup_and_prove_s"] = secs
-    say(f"[mesh] printa over {mesh.size} shards: vk, 1741 transcript entries and proof bytes equal "
-        f"tests/golden/*_printa_q84 (setup + prove {secs:.2f} s; on one device "
-        f"{report['golden_main']['setup_and_prove_s']:.2f} s)")
+    for label, env in MESH_PRINTA_ENVS:
+        config = recording_config()
+        client = ProverClient(CpuProver(config=config))
+        os.environ.update(env)
+        set_shard_mesh(mesh)
+        try:
+            t0 = time.time()
+            pk, vk = client.setup(guests.PRINTA_BF)
+            proof = client.prove(pk, b"").run()
+            secs = time.time() - t0
+        finally:
+            set_shard_mesh(None)
+            for k in env:
+                del os.environ[k]
+        if pk.pk.data.mesh != mesh or pk.pk.data.lowmem != bool(env):
+            raise AssertionError(f"{label}: the setup round is not on the mesh in its mode")
+        check_golden_printa(vk, config.challengers[0].record, proof.proof.proof.to_bytes(),
+                            f"mesh, {label}")
+        client.verify(proof, vk)
+        report["mesh"][f"printa {label}"] = {"env": env, "setup_and_prove_s": secs}
+        say(f"[mesh] printa over {mesh.size} shards, {label} {env}: vk, 1741 transcript entries "
+            f"and proof bytes equal tests/golden/*_printa_q84 (setup + prove {secs:.2f} s; on one "
+            f"device {report['golden_main']['setup_and_prove_s']:.2f} s)")
 
+    report["mesh"][f"2^{SLICE_LOG}"] = mesh_prove(torch, mesh, SLICE_LOG, single, "main phase")
+    report["mesh"][f"2^{SCALE_LOG}"] = mesh_prove(torch, mesh, SCALE_LOG, scale, "scale phase")
+
+
+def mesh_prove(torch, mesh, log_cycles, want, label):
+    """The 2^log_cycles - 1 cycle guest set up and proved under `mesh` with
+    the default settings.  Its vk and proof must be want's bytes (the
+    single-device prove of the `label`), it must verify, and a tampered
+    proof must be rejected.  The launch counts are set to 0 just before the
+    setup and read after the verify: all six kernels must launch, and the
+    4-step NTT's local transform (ntt_block_stages + ntt_stage) must run on
+    every shard.  The traces, each commit's LDEs (normal rounds) or evals
+    (low-memory rounds), every LDE block made (committed, recomputed for
+    the quotient or rebuilt for the queries), the leaf digests, the
+    permutation traces and the quotient values must each hold at most
+    1.01/d of their rows a shard; each is read as it is made, so nothing is
+    kept alive.  Returns the record; prints the phase seconds beside want's,
+    the peak at the end of each phase, the collective bytes by kind, the
+    peak device memory, and the prove's stream time inside the 4-step NTT,
+    its eager size-d DFT and twiddle (K16) and its local transform (CUDA
+    events around each call)."""
+    from zkvm_brainfuck_tpu_torch import ProverClient, guests
+    from zkvm_brainfuck_tpu_torch.ops import kernels as kn
+    from zkvm_brainfuck_tpu_torch.parallel import collectives as co
+    from zkvm_brainfuck_tpu_torch.parallel import sharded
+    from zkvm_brainfuck_tpu_torch.parallel.mesh import set_shard_mesh, shard_fraction
+    from zkvm_brainfuck_tpu_torch.stark import machine as stark_machine
+    from zkvm_brainfuck_tpu_torch.stark import pcs
+    from zkvm_brainfuck_tpu_torch.stark import prover as stark_prover
+    from zkvm_brainfuck_tpu_torch.stark.errors import VerificationFailure
+    from zkvm_brainfuck_tpu_torch.stark.types import MachineProof
+
+    def most(xs):
+        return max(shard_fraction(x) for x in xs)
+
+    def kept(out):
+        data = out[1]
+        return most(data.evals if data.lowmem else data.ldes)
+
+    tag = f"[mesh] 2^{log_cycles}"
+    targets = [(stark_prover, "place_rows", "traces", shard_fraction),
+               (stark_machine, "place_rows", "traces", shard_fraction),
+               (stark_machine, "pcs_commit", "kept LDEs or evals", kept),
+               (stark_prover, "pcs_commit", "kept LDEs or evals", kept),
+               (pcs, "_lde_blocks", "LDE blocks", most),
+               (pcs, "sharded_digest_layer", "leaf digests", shard_fraction),
+               (stark_prover, "generate_permutation_trace", "permutation traces",
+                lambda out: shard_fraction(out[0])),
+               (stark_prover, "quotient_values", "quotient values", shard_fraction)]
     client = ProverClient()
-    targets = [(stark_prover, "place_rows", "traces", lambda out: out),
-               (stark_machine, "place_rows", "traces", lambda out: out),
-               (stark_machine, "pcs_commit", "commit", lambda out: out[1]),
-               (stark_prover, "pcs_commit", "commit", lambda out: out[1]),
-               (stark_prover, "generate_permutation_trace", "permutation traces", lambda out: out[0]),
-               (stark_prover, "quotient_values", "quotient values", lambda out: out)]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     kn.reset_counts()
     co.reset_bytes()
     set_shard_mesh(mesh)
     try:
         with capturing(targets) as seen, recording(
-                [(sharded, "local_transform", "local", lambda z, log_m, inverse, shard: shard)]) as local:
+                [(sharded, "local_transform", "local", lambda z, log_m, inverse, shard: shard)]
+        ) as local, phase_peaks(torch) as peaks, stream_events(
+            torch, [(sharded, "four_step", "4-step NTT"), (sharded, "_dft_twiddle", "DFT and twiddle"),
+                    (sharded, "local_transform", "local transform")]) as events:
             t0 = time.time()
-            pk, vk = client.setup(guests.bench_guest(SLICE_LOG))
+            pk, vk = client.setup(guests.bench_guest(log_cycles))
             torch.cuda.synchronize()
             setup_s = time.time() - t0
             setup_bytes = dict(co.BYTES)
             after_setup = dict(kn.COUNTS)
             co.reset_bytes()
+            for v in events.values():
+                v.clear()
             proof = client.prove(pk, b"").run()
             torch.cuda.synchronize()
             prove_bytes = dict(co.BYTES)
     finally:
         set_shard_mesh(None)
-    peak = torch.cuda.max_memory_allocated()
+    ntt_ms = {tag: [len(v), sum(a.elapsed_time(b) for a, b in v)] for tag, v in events.items()}
+    peak = max([torch.cuda.max_memory_allocated()] + [b for _n, _s, b in peaks])
     t0 = time.time()
     client.verify(proof, vk)
     verify_s = time.time() - t0
     counts = dict(kn.COUNTS)
     missing = [k for k, v in counts.items() if v <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the mesh path: {missing}")
+        raise AssertionError(f"kernels not launched on the 2^{log_cycles} mesh path: {missing}")
     shards = sorted({note for _tag, note in local})
     if shards != list(range(mesh.size)) or counts["ntt_block_stages"] < len(local):
         raise AssertionError(f"the 4-step NTT's local transform ran on shards {shards} "
                              f"({len(local)} calls, {counts['ntt_block_stages']} block passes)")
+    if proof.proof.cycles != (1 << log_cycles) - 1:
+        raise AssertionError(f"the 2^{log_cycles} guest ran {proof.proof.cycles} cycles")
     data = proof.proof.proof.to_bytes()
-    if vk.to_bytes() != single["vk"]:
-        raise AssertionError("the mesh's vk differs from the main phase's")
-    if data != single["proof"]:
-        raise AssertionError("the mesh's 2^20 proof differs from the main phase's")
+    if vk.to_bytes() != want["vk"]:
+        raise AssertionError(f"the 2^{log_cycles} mesh vk differs from the {label}'s")
+    if data != want["proof"]:
+        raise AssertionError(f"the 2^{log_cycles} mesh proof differs from the {label}'s")
     bad = copy.copy(proof)
     bad.proof = copy.copy(proof.proof)
     bad.proof.proof = MachineProof.from_bytes(data)
@@ -1349,36 +1444,40 @@ def phase_mesh(torch, dev, report, single):
     try:
         client.verify(bad, vk)
     except VerificationFailure as e:
-        say(f"[mesh] tampered proof rejected: {type(e).__name__}: {e}")
+        say(f"{tag} tampered proof rejected: {type(e).__name__}: {e}")
     else:
-        raise AssertionError("a tampered mesh proof was accepted")
+        raise AssertionError(f"a tampered 2^{log_cycles} mesh proof was accepted")
 
-    fractions = {}
-    for tag, x in seen:
-        if tag == "commit":
-            fractions.setdefault("LDEs", []).extend(shard_fraction(v) for v in x.ldes)
-            fractions.setdefault("leaf digests", []).append(shard_fraction(x.tree.digests))
-        else:
-            fractions.setdefault(tag, []).append(shard_fraction(x))
-    worst = {k: max(v) for k, v in fractions.items()}
-    if any(v > 1.01 / mesh.size for v in worst.values()):
+    worst = {}
+    for what, frac in seen:
+        worst[what] = max(worst.get(what, 0.0), frac)
+    if set(worst) != {t[2] for t in targets} or any(v > 1.01 / mesh.size for v in worst.values()):
         raise AssertionError(f"a row-sharded intermediate holds more than 1/{mesh.size}: {worst}")
     phases = dict(proof.proof.timings, setup=setup_s, verify=verify_s)
     prove_counts = {k: counts[k] - after_setup[k] for k in counts}
-    report["mesh"].update({"phases_s": phases, "single_phases_s": single["phases"], "peak_bytes": peak,
-                           "launches": counts, "launches_prove": prove_counts,
-                           "local_transform_calls": len(local),
-                           "collective_bytes_setup": setup_bytes, "collective_bytes_prove": prove_bytes,
-                           "shard_fraction_max": worst, "proof_bytes": len(data)})
-    say(f"[mesh] 2^{SLICE_LOG} - 1 cycles over {mesh.size} shards: the main phase's vk and "
-        f"{len(data)} proof bytes, verified; peak device memory {peak / 2**30:.3f} GiB")
-    say(f"[mesh] launches (setup + prove): {counts}; the 4-step NTT's local transform ran "
+    say(f"{tag} - 1 cycles over {mesh.size} shards: the {label}'s vk and {len(data)} proof bytes, "
+        f"verified; peak device memory {peak / 2**30:.3f} GiB ({resident / 2**30:.3f} GiB "
+        "resident before the setup)")
+    say(f"{tag} launches (setup + prove): {counts}; the 4-step NTT's local transform ran "
         f"{len(local)} times, on shards {shards}")
-    say(f"[mesh] launches (prove): {prove_counts}")
-    say("[mesh] phase seconds, mesh / single device (main phase): " + ", ".join(
-        f"{k} {v:.4f} / {single['phases'].get(k, float('nan')):.4f}" for k, v in phases.items()))
-    say(f"[mesh] collective bytes a prove: {prove_bytes}; in setup: {setup_bytes}")
-    say("[mesh] largest shard fraction: " + ", ".join(f"{k} {v:.4f}" for k, v in worst.items()))
+    say(f"{tag} launches (prove): {prove_counts}")
+    say(f"{tag} phase seconds, mesh / single device ({label}): " + ", ".join(
+        f"{k} {v:.4f} / {want['phases'].get(k, float('nan')):.4f}" for k, v in phases.items()))
+    say(f"{tag} peak device memory at the end of each phase (GiB, since the previous phase "
+        "ended): " + ", ".join(f"{n} {b / 2**30:.3f}" for n, _s, b in peaks))
+    if "phase_peaks" in want:
+        say(f"{tag} the same on a single device ({label}): " + ", ".join(
+            f"{n} {b / 2**30:.3f}" for n, _s, b in want["phase_peaks"]))
+    say(f"{tag} collective bytes a prove: {prove_bytes}; in setup: {setup_bytes}")
+    say(f"{tag} largest shard fraction: " + ", ".join(f"{k} {v:.4f}" for k, v in worst.items()))
+    say(f"{tag} stream time a prove inside (calls, ms): " + ", ".join(
+        f"{k} {n} calls {ms:.3f} ms" for k, (n, ms) in ntt_ms.items())
+        + f"; prove_total {1e3 * phases['prove_total']:.3f} ms")
+    return {"ntt_stream_ms_prove": ntt_ms, "phases_s": phases, "single_phases_s": want["phases"], "peak_bytes": peak,
+            "resident_bytes_before": resident, "phase_peaks": [[n, s, b] for n, s, b in peaks],
+            "launches": counts, "launches_prove": prove_counts, "local_transform_calls": len(local),
+            "collective_bytes_setup": setup_bytes, "collective_bytes_prove": prove_bytes,
+            "shard_fraction_max": worst, "proof_bytes": len(data)}
 
 
 def main() -> int:
@@ -1412,8 +1511,8 @@ def main() -> int:
     phase_debug(torch, dev, report)
     phase_profile_trace(torch, dev, report)
     phase_lowmem(torch, dev, report)
-    phase_scale(torch, dev, report)
-    phase_mesh(torch, dev, report, single)
+    scale = phase_scale(torch, dev, report)
+    phase_mesh(torch, dev, report, single, scale)
 
     line = {"kernels": [
         {

@@ -21,6 +21,7 @@ from zkvm_brainfuck_tpu_torch.models.machine_def import brainfuck_chips
 from zkvm_brainfuck_tpu_torch.stark.chip import Chip
 from zkvm_brainfuck_tpu_torch.stark.config import KoalaBearPoseidon2
 from zkvm_brainfuck_tpu_torch.stark.machine import StarkMachine
+from test_torch_sharded import one_torch_thread  # noqa: F401 (autouse)
 
 NEW_CHIPS = ("Program", "AddSub", "Jump", "Memory", "Byte", "MemoryInstrs", "IO")
 INPUTS = {"fibo": bytes([5]), "printa": b""}

@@ -23,6 +23,7 @@ from zkvm_brainfuck_tpu_torch.stark import debug as port_debug
 from zkvm_brainfuck_tpu_torch.stark.config import KoalaBearPoseidon2
 from zkvm_brainfuck_tpu_torch.stark.machine import StarkMachine
 from zkvm_brainfuck_tpu_torch.stark.permutation import generate_permutation_trace
+from test_torch_sharded import one_torch_thread  # noqa: F401 (autouse)
 
 P = 0x7F000001
 # printa's shard: no loop and no pointer move, so no Jump or MemoryInstrs.

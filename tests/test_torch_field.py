@@ -12,6 +12,7 @@ from zkvm_brainfuck_tpu.stark import ef_host as jefh
 from zkvm_brainfuck_tpu_torch.ops import ext as txe
 from zkvm_brainfuck_tpu_torch.ops import field as tf
 from zkvm_brainfuck_tpu_torch.stark import ef_host as tefh
+from test_torch_sharded import one_torch_thread  # noqa: F401 (autouse)
 
 P = tf.P
 EDGES = np.array([0, 1, P - 1, 2, P - 2], dtype=np.uint32)

@@ -32,6 +32,7 @@ from zkvm_brainfuck_tpu_torch.stark import quotient as tquot
 from zkvm_brainfuck_tpu_torch.stark.challenger import DuplexChallenger
 from zkvm_brainfuck_tpu_torch.stark.config import FriConfig, KoalaBearPoseidon2
 from zkvm_brainfuck_tpu_torch.stark.domains import Domain, domain_points_dev
+from test_torch_sharded import one_torch_thread  # noqa: F401 (autouse)
 
 P = jf.P
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")

@@ -28,6 +28,7 @@ from zkvm_brainfuck_tpu_torch.stark.errors import (
 )
 from zkvm_brainfuck_tpu_torch.stark.serial import ProofDecodeError
 from zkvm_brainfuck_tpu_torch.stark.types import MachineProof, ShardProof
+from test_torch_sharded import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 # Half-open transcript segments of the pipeline (ROADMAP "Main path, slice by slice").

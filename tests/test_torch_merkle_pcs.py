@@ -17,6 +17,7 @@ from zkvm_brainfuck_tpu_torch.stark import pcs as tpcs
 from zkvm_brainfuck_tpu_torch.stark.challenger import DuplexChallenger
 from zkvm_brainfuck_tpu_torch.stark.domains import Domain
 from zkvm_brainfuck_tpu_torch.stark.errors import VerificationFailure
+from test_torch_sharded import one_torch_thread  # noqa: F401 (autouse)
 
 P = jf.P
 

@@ -14,6 +14,7 @@ from zkvm_brainfuck_tpu.ops import ntt_pallas as jntp
 from zkvm_brainfuck_tpu_torch.ops import field as tf
 from zkvm_brainfuck_tpu_torch.ops import ntt as tnt
 from zkvm_brainfuck_tpu_torch.stark import pcs as tpcs
+from test_torch_sharded import one_torch_thread  # noqa: F401 (autouse)
 
 P = jf.P
 CPU = torch.device("cpu")

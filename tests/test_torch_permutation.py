@@ -33,6 +33,7 @@ from zkvm_brainfuck_tpu_torch.stark.permutation import (
     logup_table,
 )
 from zkvm_brainfuck_tpu_torch.stark.quotient import constraint_ext_flags
+from test_torch_sharded import one_torch_thread  # noqa: F401 (autouse)
 
 P = 0x7F000001
 

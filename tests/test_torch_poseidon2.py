@@ -12,6 +12,7 @@ from zkvm_brainfuck_tpu.stark.challenger import DuplexChallenger as JaxChallenge
 from zkvm_brainfuck_tpu_torch.convert import challenger_from_jax, challenger_to_jax
 from zkvm_brainfuck_tpu_torch.ops import poseidon2 as tp2
 from zkvm_brainfuck_tpu_torch.stark.challenger import DuplexChallenger
+from test_torch_sharded import one_torch_thread  # noqa: F401 (autouse)
 
 P = jf.P
 

@@ -9,7 +9,6 @@ port, Montgomery inside the JAX functions (their inputs are converted with
 comparison is exact.
 """
 
-import contextlib
 import json
 import os
 
@@ -83,17 +82,17 @@ def _jax_rows(jax_mesh, a):
     return jax.device_put(jnp.asarray(a), NamedSharding(jax_mesh, JP("rows")))
 
 
-@contextlib.contextmanager
-def _one_thread():
-    """A mesh prove on the CPU is many small ops a shard; beside other test
-    workers on the host, torch's intra-op threads oversubscribe the cores
-    and slow them by an order of magnitude, so the proves here take one."""
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for a module's tests.  The suite runs in
+    several worker processes; beside them, torch's OpenMP teams
+    oversubscribe the host's cores and a CPU prove, many small ops, runs one
+    to two orders of magnitude slower.  The port's other test modules
+    import this fixture."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
+    yield
+    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------
@@ -279,9 +278,8 @@ def mesh_run(mesh):
         setattr(mod, name, fn)
     set_shard_mesh(mesh)
     try:
-        with _one_thread():
-            pk, vk = client.setup(guests.PRINTA_BF)
-            proof = client.prove(pk, b"").run()
+        pk, vk = client.setup(guests.PRINTA_BF)
+        proof = client.prove(pk, b"").run()
     finally:
         set_shard_mesh(None)
         for mod, name, fn in saved:
@@ -343,17 +341,6 @@ def test_mesh_intermediates_stay_sharded(mesh_run):
             assert shard_fraction(x) <= 1.01 / SHARDS, f"{what}: {shard_fraction(x)} of {x.shape}"
 
 
-def test_lowmem_round_under_a_mesh_raises(mesh, monkeypatch):
-    monkeypatch.setenv("ZKBF_LOWMEM", "1")
-    client = ProverClient(CpuProver(device="cpu"))
-    set_shard_mesh(mesh)
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            client.setup(guests.PRINTA_BF)
-    finally:
-        set_shard_mesh(None)
-
-
 def test_a_key_from_another_mesh_is_refused(mesh_run, mesh):
     client, pk, _vk, _proof, _tr, _seen = mesh_run
     with pytest.raises(ValueError, match="set up on mesh"):
@@ -378,8 +365,7 @@ def test_bf_debug_replay_under_a_mesh(mesh_run, mesh, monkeypatch):
     monkeypatch.setenv("BF_DEBUG", "1")
     set_shard_mesh(mesh)
     try:
-        with _one_thread():
-            proof = client.prove(pk, b"").run()
+        proof = client.prove(pk, b"").run()
     finally:
         set_shard_mesh(None)
     assert len(replays) == 1

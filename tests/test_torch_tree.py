@@ -11,6 +11,7 @@ from zkvm_brainfuck_tpu.ops import field as jf
 from zkvm_brainfuck_tpu.ops import merkle as jmk
 from zkvm_brainfuck_tpu_torch.ops import kernels as kn
 from zkvm_brainfuck_tpu_torch.ops import merkle as tmk
+from test_torch_sharded import one_torch_thread  # noqa: F401 (autouse)
 
 P = jf.P
 

@@ -26,6 +26,7 @@ from zkvm_brainfuck_tpu_torch.stark.challenger import DuplexChallenger
 from zkvm_brainfuck_tpu_torch.stark.chip import Chip
 from zkvm_brainfuck_tpu_torch.stark.errors import VerificationFailure
 from zkvm_brainfuck_tpu_torch.stark.uni import uni_stark_prove, uni_stark_verify
+from test_torch_sharded import one_torch_thread  # noqa: F401 (autouse)
 
 # A loop, an input and an output: 104 cycles -> a 128 x 31 Cpu trace.
 SRC = ",[->+<]>."

@@ -28,6 +28,7 @@ from zkvm_brainfuck_tpu_torch.utils.concurrency import TurnBasedSync
 from zkvm_brainfuck_tpu_torch.utils.prove import prove_program, run_test
 from zkvm_brainfuck_tpu_torch.utils.report import generate_execution_report, sorted_table_lines
 from zkvm_brainfuck_tpu_torch.utils.span import SpanBuilder
+from test_torch_sharded import one_torch_thread  # noqa: F401 (autouse)
 
 OPS = "+-<>[],."
 

@@ -168,12 +168,26 @@ class RowSharded:
         blocks = [b.reshape((self.rows,) + tuple(shape[1:])) for b in self.blocks]
         return RowSharded(self.mesh, blocks, (self.shape[0],) + tuple(blocks[0].shape[1:]))
 
+    def cols(self, c0: int, c1: int) -> "RowSharded":
+        """Columns [c0, c1) of a 2-D x, each shard's block made contiguous
+        (the sharded `x[:, c0:c1].contiguous()`)."""
+        return RowSharded(self.mesh, [b[:, c0:c1].contiguous() for b in self.blocks],
+                          (self.shape[0], c1 - c0))
+
     def gather(self, device=None) -> torch.Tensor:
         """All rows as one tensor on `device` (the mesh's first by default),
         counted under "gather" in the collectives' bytes."""
         from . import collectives
 
         return collectives.gather(self, self.mesh.first if device is None else device)
+
+
+def join_cols(parts: Sequence[RowSharded]) -> RowSharded:
+    """Row-sharded 2-D matrices of one height side by side: each shard's
+    blocks joined on dim 1 (the sharded `torch.cat(parts, dim=1)`)."""
+    mesh = parts[0].mesh
+    blocks = [torch.cat([p.blocks[k] for p in parts], dim=1) for k in range(mesh.size)]
+    return RowSharded(mesh, blocks, (parts[0].shape[0], sum(p.shape[1] for p in parts)))
 
 
 def place_rows(t):

@@ -12,7 +12,7 @@ collectives of `parallel/collectives.py`:
 - `sharded_coset_lde`: the prover's LDE on a mesh: sharded iNTT, the
   n^-1 * shift^i scale on each shard's rows, zero rows (`reshard_pad`), a
   sharded NTT; below n = d^2 a named gather, the single-device LDE, and a
-  scatter.
+  scatter.  `sharded_lde_blocks` runs it a column block.
 - `sharded_digest_layer` + `build_sharded_tree` (`ShardedMerkleTree`): the
   bit-reversed digest layer routed by one all_to_all into contiguous leaf
   ranges, one subtree walk a shard, the top log2(d) levels on the first
@@ -175,6 +175,13 @@ def sharded_coset_lde(x: RowSharded, log_blowup: int, shift: int) -> RowSharded:
               for k, b in enumerate(c.blocks)]
     padded = co.reshard_pad(RowSharded(mesh, scaled, c.shape), log_blowup)
     return four_step(padded, inverse=False)
+
+
+def sharded_lde_blocks(x: RowSharded, spans: Sequence[tuple], log_blowup: int,
+                       shift: int) -> List[RowSharded]:
+    """The column-blocked LDE on a mesh: one `sharded_coset_lde` of each
+    column span [c0, c1) of x, in span order (stark/pcs.py `_lde_spans`)."""
+    return [sharded_coset_lde(x.cols(c0, c1), log_blowup, shift) for c0, c1 in spans]
 
 
 # ---------------------------------------------------------------------------

@@ -22,13 +22,15 @@ Counterpart of the JAX package's stark/pcs.py:
   source domain, carried to the LDE domain by one 4-column LDE.  Query
   proofs bundle the input-batch Merkle openings and the FRI layer walks.
 - verify: full host-side replay (numpy), copied from the JAX package.
-- on a mesh (row-sharded eval matrices, `parallel/`): the LDEs stay
-  row-sharded (`sharded_coset_lde`, the counterpart of `_ntt_dispatch`),
-  the digest layer is routed into contiguous leaf ranges and each shard
-  walks its subtree (`ShardedMerkleTree`); opened values are per-shard sums
-  added by a psum; reduced openings are computed per shard and gathered
-  once to the first device for FRI.  Low-memory and column-blocked rounds
-  are not sharded: a mesh with one raises NotImplementedError.
+- on a mesh (row-sharded eval matrices, `parallel/`), in every mode: the
+  LDE blocks stay row-sharded (`sharded_lde_blocks`, the counterpart of
+  `_ntt_dispatch`), the digest layer is routed into contiguous leaf ranges
+  and each shard walks its subtree (`ShardedMerkleTree`); a low-memory
+  round keeps its row-sharded evals and rebuilds the sharded blocks and
+  tree at query time.  Opened values are per-shard sums added by a psum;
+  reduced openings are computed per shard (a low-memory sub-unit's q on
+  each shard's source rows, then one sharded 4-column LDE) and gathered
+  once to the first device for FRI.
 
 Proofs are the same bytes in every mode, with or without a mesh.
 """
@@ -50,8 +52,13 @@ from ..ops import merkle as mk
 from ..ops import ntt as nt
 from ..ops.field import GENERATOR, I32, I64, P
 from ..parallel import collectives as co
-from ..parallel.mesh import RowMesh, RowSharded
-from ..parallel.sharded import build_sharded_tree, sharded_coset_lde, sharded_digest_layer
+from ..parallel.mesh import RowMesh, RowSharded, join_cols
+from ..parallel.sharded import (
+    build_sharded_tree,
+    sharded_coset_lde,
+    sharded_digest_layer,
+    sharded_lde_blocks,
+)
 from ..utils import phases
 from . import ef_host as efh
 from .challenger import DuplexChallenger
@@ -65,9 +72,12 @@ LOG_BLOWUP = 1
 @dataclass
 class PcsProverData:
     domains: List[Domain]
-    # LDE evals over GENERATOR*H_2n, natural order; None in low-memory mode
+    # LDE evals over GENERATOR*H_2n, natural order (RowSharded on a mesh);
+    # None in low-memory mode
     ldes: Optional[List[torch.Tensor]]
-    tree: mk.MerkleTree  # commits bit-reversed LDE rows (no flat in low-memory mode)
+    # commits bit-reversed LDE rows (a ShardedMerkleTree on a mesh); in
+    # low-memory mode only the plan and the root
+    tree: mk.MerkleTree
     sig: tuple  # per matrix (log_n, shift, width)
     evals: Optional[List[torch.Tensor]] = None  # kept only in low-memory mode
 
@@ -82,14 +92,16 @@ class PcsProverData:
     @property
     def mesh(self) -> Optional[RowMesh]:
         """The mesh of a row-sharded round (None on one device)."""
-        return self.ldes[0].mesh if self.ldes and isinstance(self.ldes[0], RowSharded) else None
+        held = self.evals if self.lowmem else self.ldes
+        return held[0].mesh if held and isinstance(held[0], RowSharded) else None
 
     @property
     def device(self) -> torch.device:
         return (self.evals if self.lowmem else self.ldes)[0].device
 
     def lde_blocks(self, i: int) -> List[torch.Tensor]:
-        """Column-blocked LDE of matrix i (recomputed in low-memory mode)."""
+        """Column-blocked LDE of matrix i (recomputed in low-memory mode;
+        row-sharded blocks on a mesh)."""
         if not self.lowmem:
             return [self.ldes[i]]
         log_n, shift, _w = self.sig[i]
@@ -102,7 +114,13 @@ def lde(evals: torch.Tensor, log_n: int, shift: int) -> torch.Tensor:
     zero-pad, NTT; the scale and the padding happen inside the forward
     transform's block pass (ops/ntt.py coset_lde)."""
     assert evals.shape[0] == 1 << log_n
-    return nt.coset_lde(evals, LOG_BLOWUP, GENERATOR * pow(shift, P - 2, P) % P)
+    return nt.coset_lde(evals, LOG_BLOWUP, _lde_shift(shift))
+
+
+def _lde_shift(shift: int) -> int:
+    """The coset shift that carries evaluations over shift*H_n to
+    GENERATOR*H_2n."""
+    return GENERATOR * pow(shift, P - 2, P) % P
 
 
 def _blk_cfg() -> Tuple[int, int]:
@@ -137,10 +155,13 @@ def _lowmem_for(sig: tuple) -> bool:
     return max(ln + LOG_BLOWUP for ln, _s, _w in sig) >= thr
 
 
-def _lde_blocks(evals: torch.Tensor, log_n: int, shift: int) -> List[torch.Tensor]:
-    """The LDE of each column span of `evals` (each span made contiguous)."""
-    return [lde(evals[:, c0:c1].contiguous(), log_n, shift)
-            for c0, c1 in _lde_spans(log_n, int(evals.shape[1]))]
+def _lde_blocks(evals, log_n: int, shift: int) -> list:
+    """The LDE of each column span of `evals` (each span made contiguous);
+    row-sharded blocks of row-sharded evals."""
+    spans = _lde_spans(log_n, int(evals.shape[1]))
+    if isinstance(evals, RowSharded):
+        return sharded_lde_blocks(evals, spans, LOG_BLOWUP, _lde_shift(shift))
+    return [lde(evals[:, c0:c1].contiguous(), log_n, shift) for c0, c1 in spans]
 
 
 def _group_sigs(sig: tuple):
@@ -152,23 +173,43 @@ def _group_sigs(sig: tuple):
     return sorted(groups.items(), key=lambda kv: -kv[0])
 
 
-def _commit_blocks(sig: tuple, evals: Sequence[torch.Tensor], keep):
+def _commit_blocks(sig: tuple, evals: Sequence, keep):
     """LDE blocks and digest layers of a batch, one height group at a time;
     keep(i, blocks) receives matrix i's blocks, which are dropped after
-    their group's digest layer unless it keeps them.  Returns the tree
-    plan and flat buffer."""
-    heights = tuple(1 << (ln + LOG_BLOWUP) for ln, _, _ in sig)
-    digests: Dict[int, torch.Tensor] = {}
+    their group's digest layer unless it keeps them.  Row-sharded evals
+    give row-sharded blocks and layers in contiguous leaf ranges.  Returns
+    the tree plan and the digest layers by height."""
+    digests: Dict[int, object] = {}
     for log_lde, members in _group_sigs(sig):
         group = []
         for i, (log_n, shift, _w) in members:
             blocks = _lde_blocks(evals[i], log_n, shift)
             keep(i, blocks)
             group.extend(blocks)
-        digests[1 << log_lde] = mk.sponge_rows(group, bitrev=True)
+        if isinstance(group[0], RowSharded):
+            digests[1 << log_lde] = sharded_digest_layer(group)
+        else:
+            digests[1 << log_lde] = mk.sponge_rows(group, bitrev=True)
         del group, blocks
-    plan = mk.make_plan(heights)
-    return plan, mk.build_tree(plan, digests)
+    return mk.make_plan(tuple(1 << (ln + LOG_BLOWUP) for ln, _, _ in sig)), digests
+
+
+def _tree(plan: mk.TreePlan, digests: Dict[int, object], matrices: list):
+    """The tree over a commit's digest layers, opening `matrices`: one walk
+    on one device, or a subtree walk a shard (`build_sharded_tree`) over
+    row-sharded layers."""
+    if isinstance(digests[plan.max_h], RowSharded):
+        return build_sharded_tree(plan, digests, matrices)
+    flat = mk.build_tree(plan, digests)
+    return mk.MerkleTree(matrices=matrices, plan=plan, flat=flat, root=mk.root_of(plan, flat),
+                         bitrev=True)
+
+
+def _join_blocks(blocks: list):
+    """A matrix's LDE from its column blocks."""
+    if len(blocks) == 1:
+        return blocks[0]
+    return join_cols(blocks) if isinstance(blocks[0], RowSharded) else torch.cat(blocks, dim=1)
 
 
 def pcs_commit(
@@ -178,62 +219,36 @@ def pcs_commit(
     column blocks at blocked heights), hash each LDE-height group's
     bit-reversed rows into its digest layer, walk the tree.  In low-memory
     mode only the evals, the plan and the root are kept.  Runs on the card
-    unless device="cpu"; row-sharded evals stay row-sharded
-    (`_pcs_commit_sharded`)."""
+    unless device="cpu"; row-sharded evals (one mesh) keep every LDE block,
+    digest layer and subtree row-sharded, with the single-device root and
+    LDE values."""
     device = resolve_device(device)
     domains = [d for d, _ in domains_and_evals]
-    if any(isinstance(e, RowSharded) for _, e in domains_and_evals):
-        return _pcs_commit_sharded(domains, [e for _, e in domains_and_evals])
-    evals = [xf.as_field_tensor(e, device) for _, e in domains_and_evals]
+    evals = [e for _, e in domains_and_evals]
+    if any(isinstance(e, RowSharded) for e in evals):
+        if not all(isinstance(e, RowSharded) and e.mesh == evals[0].mesh for e in evals):
+            raise ValueError("pcs_commit: a batch mixes meshes or row-sharded and single-device matrices")
+    else:
+        evals = [xf.as_field_tensor(e, device) for e in evals]
     for d, e in zip(domains, evals):
         if e.dim() != 2 or e.shape[0] != d.size:
             raise ValueError(f"evals of shape {tuple(e.shape)} do not fit {d}")
     sig = tuple((d.log_n, d.shift, int(e.shape[1])) for d, e in zip(domains, evals))
 
     if _lowmem_for(sig):
-        plan, flat = _commit_blocks(sig, evals, lambda i, blocks: None)
-        root = mk.root_of(plan, flat)
-        del flat  # rebuilt round by round at query time
+        plan, digests = _commit_blocks(sig, evals, lambda i, blocks: None)
+        root = _tree(plan, digests, []).root
+        del digests  # the tree is rebuilt round by round at query time
         tree = mk.MerkleTree(matrices=None, plan=plan, flat=None, root=root, bitrev=True)
         return root, PcsProverData(domains=domains, ldes=None, tree=tree, sig=sig, evals=evals)
 
-    ldes: List[torch.Tensor] = [None] * len(sig)
+    ldes: list = [None] * len(sig)
 
     def keep(i, blocks):
-        ldes[i] = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=1)
+        ldes[i] = _join_blocks(blocks)
 
-    plan, flat = _commit_blocks(sig, evals, keep)
-    tree = mk.MerkleTree(
-        matrices=list(ldes), plan=plan, flat=flat, root=mk.root_of(plan, flat), bitrev=True
-    )
-    return tree.root, PcsProverData(domains=domains, ldes=ldes, tree=tree, sig=sig)
-
-
-MESH_TODO = "not sharded yet (ROADMAP.md, Queue 1 item 3); prove this size without a mesh"
-
-
-def _pcs_commit_sharded(domains: List[Domain], evals: List[RowSharded]):
-    """pcs_commit of row-sharded eval matrices (one mesh): sharded LDEs, the
-    digest layer of each height group in contiguous leaf ranges, a subtree
-    walk a shard.  Root and LDE values equal the single-device commit's."""
-    if not all(isinstance(e, RowSharded) and e.mesh == evals[0].mesh for e in evals):
-        raise ValueError("pcs_commit: a batch mixes meshes or row-sharded and single-device matrices")
-    for d, e in zip(domains, evals):
-        if e.dim() != 2 or e.shape[0] != d.size:
-            raise ValueError(f"evals of shape {e.shape} do not fit {d}")
-    sig = tuple((d.log_n, d.shift, int(e.shape[1])) for d, e in zip(domains, evals))
-    if _lowmem_for(sig):
-        raise NotImplementedError(f"the low-memory PCS mode on a mesh is {MESH_TODO}")
-    if any(len(_lde_spans(ln, w)) > 1 for ln, _s, w in sig):
-        raise NotImplementedError(f"column-blocked LDEs on a mesh are {MESH_TODO}")
-    ldes: List[RowSharded] = [None] * len(sig)
-    digests: Dict[int, RowSharded] = {}
-    for log_lde, members in _group_sigs(sig):
-        for i, (log_n, shift, _w) in members:
-            ldes[i] = sharded_coset_lde(evals[i], LOG_BLOWUP, GENERATOR * pow(shift, P - 2, P) % P)
-        digests[1 << log_lde] = sharded_digest_layer([ldes[i] for i, _ms in members])
-    plan = mk.make_plan(tuple(1 << (ln + LOG_BLOWUP) for ln, _, _ in sig))
-    tree = build_sharded_tree(plan, digests, ldes)
+    plan, digests = _commit_blocks(sig, evals, keep)
+    tree = _tree(plan, digests, list(ldes))
     return tree.root, PcsProverData(domains=domains, ldes=ldes, tree=tree, sig=sig)
 
 
@@ -475,7 +490,11 @@ def pcs_open(
                 data = rounds[r][0]
                 mats_and_aps.append((data.evals[i] if data.lowmem else data.ldes[i], ap))
             if mesh is not None:
-                ro[log_h] = _ro_accum_sharded(mesh, ro.get(log_h), mats_and_aps, s, z, log_h)
+                if key[0] == "src":
+                    ro[log_h] = _ro_src_accum_sharded(mesh, ro.get(log_h), mats_and_aps, s, z,
+                                                      key[1], key[2])
+                else:
+                    ro[log_h] = _ro_accum_sharded(mesh, ro.get(log_h), mats_and_aps, s, z, log_h)
                 continue
             mats_and_aps = [(m, torch.tensor(ap, dtype=I64, device=device)) for m, ap in mats_and_aps]
             if key[0] == "src":
@@ -534,20 +553,39 @@ def _ro_accum_sharded(mesh: RowMesh, acc, mats_and_aps, s: tuple, z: tuple, log_
     return out
 
 
+def _ro_src_accum_sharded(mesh: RowMesh, acc, mats_and_aps, s: tuple, z: tuple, log_n: int,
+                          shift: int):
+    """ro_src_accum over row-sharded evals on the source domain shift*H_n:
+    each shard's q = (g - S) * inv(x - z) on its own source rows, one
+    sharded 4-column LDE of q onto GENERATOR*H_2n, added into the per-shard
+    EF planes acc of the LDE rows (None starts from zero)."""
+    rows = (1 << log_n) // mesh.size
+    q = []
+    for k, dev in enumerate(mesh.devices):
+        pts = domain_points_dev(log_n, shift, dev, k * rows, rows)
+        members = [(m.blocks[k], torch.tensor(ap, dtype=I64, device=dev)) for m, ap in mats_and_aps]
+        q.append(xe.to_array(ro_accum(xe.ezeros((rows,), device=dev), members, s,
+                                      _inv_x_minus_z(pts, z))))
+    contrib = sharded_coset_lde(RowSharded(mesh, q, (1 << log_n, 4)), LOG_BLOWUP, _lde_shift(shift))
+    parts = [xe.from_array(b) for b in contrib.blocks]
+    return parts if acc is None else [xe.eadd(a, c) for a, c in zip(acc, parts)]
+
+
 def _lowmem_round_openings(data: PcsProverData, idx: np.ndarray, log_global: int):
     """Rebuild one low-memory round's LDE blocks and tree (the commit's own
-    steps), check its root against the committed one, and open it at the
-    query indices.  Returns (rows per matrix (Q, W_i), paths (Q, L, 8)) as
-    host uint32; everything rebuilt is freed on return."""
+    steps; row-sharded on a mesh), check its root against the committed
+    one, and open it at the query indices.  Returns (rows per matrix (Q,
+    W_i), paths (Q, L, 8)) as host uint32; everything rebuilt is freed on
+    return."""
     block_lists: Dict[int, list] = {}
-    plan, flat = _commit_blocks(data.sig, data.evals, block_lists.__setitem__)
-    root = mk.root_of(plan, flat)
-    if not np.array_equal(root, data.tree.root):
-        raise RuntimeError("low-memory rebuild produced a different Merkle root")
+    plan, digests = _commit_blocks(data.sig, data.evals, block_lists.__setitem__)
     # The blocks in matrix order, as the tree's matrices: a block's height is
     # its matrix's, so its row indices are the matrix's.
     blocks = [b for i in range(len(data.sig)) for b in block_lists[i]]
-    tree = mk.MerkleTree(matrices=blocks, plan=plan, flat=flat, root=root, bitrev=True)
+    tree = _tree(plan, digests, blocks)
+    del digests
+    if not np.array_equal(tree.root, data.tree.root):
+        raise RuntimeError("low-memory rebuild produced a different Merkle root")
     block_rows, paths = mk.open_many([tree], [idx >> (log_global - plan.log_max)])[0]
     rows, off = [], 0
     for i in range(len(data.sig)):
