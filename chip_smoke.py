@@ -9,14 +9,17 @@ result line:
 1. device: the card's name and power limit (nvidia-smi).
 2. build: the CUDA kernels (csrc/*.cu, one nvcc each, in parallel) and the
    native guest executor.
-3. kernels: each of the six kernels against its plain PyTorch version on
+3. kernels: each of the eight kernels against its plain PyTorch version on
    the card, on the same random inputs at the shapes of the main path
    (bit-exact: integer field arithmetic, tolerance 0), with CUDA-event times
    (median of 5 after a warm-up) and the bound of each launch.  The LogUp
    kernel computes the running sum too (the TPU's separate scan, an entry
    of its own in the kernels line with "fused_into"): it is held against
    logup_entries_plain + logup_scan_plain over the whole trace and the
-   cumulative sum, and the running sum is timed beside torch.cumsum.
+   cumulative sum, and the running sum is timed beside torch.cumsum.  The
+   opening kernels (open_eval, ro_accum) are held at the main path's
+   largest opening unit, at a small unit of odd widths on a shifted domain
+   at a shard's rows, and at a unit of more members than one launch takes.
 4. golden: the card-path uni-STARK proof of the golden guest at 84 queries
    must equal tests/golden/uni_cpu_<guest>_q84.json (made by the JAX
    package) byte for byte.
@@ -26,7 +29,7 @@ result line:
    tests/golden/transcript_printa_q84.json byte for byte.
 6. uni slice: execute the 2^20 - 1 cycle bench guest, generate its 2^20 x 31
    Cpu trace, uni-STARK prove at 84 queries, verify, and reject a tampered
-   proof; the five kernels of that path must have launched.
+   proof; the seven kernels of that path must have launched.
 7. main path: ProverClient setup -> prove -> verify of the same guest over
    all 8 chips at 84 queries and 16 PoW bits; a tampered proof must be
    rejected with a typed error.  The launch counts are set to 0 just before
@@ -36,8 +39,10 @@ result line:
    (for the per-prove bounds), of the LDEs and of the NTT tables they read;
    the NTT launches must be those the LDE shapes require, the tree walk
    must be one call for each commit the proof holds (main, permutation,
-   quotient and one per FRI commit phase), and LogUp one launch a chip, each
-   after a clear of its scratch.
+   quotient and one per FRI commit phase), LogUp one launch a chip, each
+   after a clear of its scratch, and the opening rounds one open_eval
+   launch (after a clear of its scratch) a unit and one ro_accum launch a
+   reduced-opening sub-unit.
 8. lde: the CUDA-event time of those LDEs back to back, against their
    bound; one LDE under torch.profiler must run the two NTT kernels only.
 9. profile: a warm main-path prove with the same key, timed alone, then one
@@ -71,7 +76,7 @@ result line:
    8-column blocks), must give the main phase's and the scale phase's
    default vk and proof bytes, verify, and reject a tampered proof.  For
    each, the launch counts are set to 0 just before the setup and read
-   after the verify: all six kernels must launch, and the 4-step NTT's
+   after the verify: all eight kernels must launch, and the 4-step NTT's
    local transform (ntt_block_stages + ntt_stage) must run on every shard;
    the traces, the kept LDEs or evals, every LDE block made, the leaf
    digests, the permutation traces and the quotient values must hold at
@@ -99,6 +104,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+# Products of one EF4 inverse through the norm: 8 Frobenius scales by
+# constants, 2 EF4 products, the norm's 4, the Fermat power p - 2 =
+# (2^6 - 1) * 2^25 + 2^24 - 1 by an addition chain of 48 squarings and 6
+# products, and 4 scales.
+EF4_INV_MULS = 8 + 2 * 16 + 4 + 48 + 6 + 4
 # Integer instruction rate: 64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost (Hopper
 # white paper).  The operation bounds count the integer instructions of the
 # field operations that each function needs at the least, not those that
@@ -135,6 +145,8 @@ REPLACES = {
     "poseidon2_permute": "zkvm_brainfuck_tpu/ops/poseidon2.py:279",
     "logup_entries": "zkvm_brainfuck_tpu/stark/permutation.py:77",
     "logup_scan": "zkvm_brainfuck_tpu/stark/permutation.py:215",
+    "open_eval": "zkvm_brainfuck_tpu/stark/pcs.py:467",
+    "ro_accum": "zkvm_brainfuck_tpu/stark/pcs.py:542",
 }
 # Functions that have no kernel of their own: {function: the kernel that
 # computes it}.  They keep an entry in the kernels line.
@@ -147,6 +159,8 @@ SOURCES = {
     "poseidon2_permute": "zkvm_brainfuck_tpu_torch/csrc/poseidon2.cu",
     "logup_entries": "zkvm_brainfuck_tpu_torch/csrc/logup.cu",
     "logup_scan": "zkvm_brainfuck_tpu_torch/csrc/logup.cu",
+    "open_eval": "zkvm_brainfuck_tpu_torch/csrc/openings.cu",
+    "ro_accum": "zkvm_brainfuck_tpu_torch/csrc/openings.cu",
 }
 # The device functions of each kernel, as the profiler names them.
 DEVICE_FUNCS = {
@@ -156,9 +170,15 @@ DEVICE_FUNCS = {
     "poseidon2_tree": ("bulk_kernel", "tree_kernel"),
     "poseidon2_permute": ("permute_kernel",),
     "logup_entries": ("entries_kernel",),
+    "open_eval": ("open_eval_kernel",),
+    "ro_accum": ("ro_accum_kernel",),
 }
 UNI_KERNELS = ("ntt_block_stages", "ntt_stage", "poseidon2_hash_rows", "poseidon2_tree",
-               "poseidon2_permute")
+               "poseidon2_permute", "open_eval", "ro_accum")
+# The main path's largest opening unit: its 2^21-row LDEs opened at zeta,
+# in round order (the AddSub and Cpu main traces, their permutation traces,
+# and two 4-column quotient chunks of each).
+OPEN_UNIT_LOG, OPEN_UNIT_WIDTHS = SLICE_LOG + 1, (7, 31, 16, 36, 4, 4, 4, 4)
 GOLDEN_QUERIES, GOLDEN_POW_BITS = 84, 16
 TRANSCRIPT_SEGMENTS = [("S1 setup", 0, 15), ("S2 main commit", 15, 31), ("S3 LogUp", 31, 67),
                        ("S4 quotient", 67, 79), ("S5 open", 79, 1741)]
@@ -224,6 +244,7 @@ def launch_bounds():
     from zkvm_brainfuck_tpu_torch.ops import logup as lu
     from zkvm_brainfuck_tpu_torch.ops import merkle as mk
     from zkvm_brainfuck_tpu_torch.ops import ntt as nt
+    from zkvm_brainfuck_tpu_torch.ops import openings as op
     from zkvm_brainfuck_tpu_torch.ops import poseidon2 as p2
 
     def block_stages(x, log_n, k, inverse=False, factors=None):
@@ -261,6 +282,30 @@ def launch_bounds():
         return bound(n * (main.shape[1] + pw) * 4 + n * (table.nb + 1) * 16,
                      n * (logup_mults_per_row(table) * (MUL_INSTR + ADD_INSTR) + 4 * ADD_INSTR))
 
+    def unit_elems(mats):
+        return sum(m.numel() for m in mats), sum(int(m.shape[1]) for m in mats)
+
+    def open_eval(mats, z, log_m, shift, row0=0):
+        """Every member read once and the (W, 4) sums written; 4 products
+        and 4 additions an element, an EF4 inverse and 4 products (x times
+        it) a row."""
+        elems, w = unit_elems(mats)
+        h = int(mats[0].shape[0])
+        return bound(4 * elems + 16 * w,
+                     elems * 4 * (MUL_INSTR + ADD_INSTR) + h * (EF4_INV_MULS + 4) * MUL_INSTR)
+
+    def ro_accum(ro, mats, alpha_pows, s, z, log_m, shift, row0=0, first=False):
+        """Every member and the alpha powers read once, the (h, 4) reduced
+        opening read (unless first) and written; 4 products and 4
+        additions an element, and a row's EF4 inverse, its 4 subtractions
+        of S, the EF4 product (16 products, 12 additions) and, unless
+        first, 4 additions."""
+        elems, w = unit_elems(mats)
+        h = int(mats[0].shape[0])
+        return bound(4 * elems + 16 * w + 16 * h * (1 if first else 2),
+                     elems * 4 * (MUL_INSTR + ADD_INSTR)
+                     + h * ((EF4_INV_MULS + 16) * MUL_INSTR + (16 if first else 20) * ADD_INSTR))
+
     return {
         "ntt_block_stages": (nt, "ntt_block_stages", block_stages),
         "ntt_stage": (nt, "ntt_stage", stage),
@@ -268,6 +313,8 @@ def launch_bounds():
         "poseidon2_tree": (mk, "build_tree", tree),
         "poseidon2_permute": (p2, "permute", permute),
         "logup_entries": (lu, "logup_trace", entries),
+        "open_eval": (op, "open_eval", open_eval),
+        "ro_accum": (op, "ro_accum", ro_accum),
     }
 
 
@@ -454,6 +501,7 @@ def phase_kernels(torch, dev, report):
                                         bound=bounds["poseidon2_permute"](grind, out_cols=8),
                                         shape=f"({1 << 17}, 16) -> ({1 << 17}, 8)")
     logup_kernels(torch, dev, rand, compare, kernels, bounds)
+    opening_kernels(torch, rand, compare, kernels, bounds)
     torch.cuda.synchronize()
     for name, k in kernels.items():
         say(f"[kernels] {name} {k['shape']}: bit-exact; kernel {k['ms']:.4f} ms, "
@@ -505,8 +553,7 @@ def logup_mults_per_row(table) -> int:
     per = 0
     for lk, _send in table.interactions:
         per += sum(len(a.terms) + 4 for a in lk.values) + len(lk.multiplicity.terms)
-    einv = 8 + 2 * 16 + 4 + 48 + 6 + 4
-    return per + 16 * (n - 1) + einv + 2 * 16 * (n - 1) + 4 * n
+    return per + 16 * (n - 1) + EF4_INV_MULS + 2 * 16 * (n - 1) + 4 * n
 
 
 def logup_kernels(torch, dev, rand, compare, kernels, bounds):
@@ -576,6 +623,61 @@ def logup_kernels(torch, dev, rand, compare, kernels, bounds):
         f"with the entries); on its own its bound is {scan_bound(n)[0]:.4f} ms, the plain version "
         f"{scan_plain_ms:.4f} ms, torch.cumsum of the int64 column {library_ms:.4f} ms (of its "
         f"transpose (4, {n}) along the rows: {library_t_ms:.4f} ms)")
+
+
+def opening_kernels(torch, rand, compare, kernels, bounds):
+    """open_eval and ro_accum against open_eval_plain and ro_accum_plain, bit
+    for bit, on random members, alpha powers and points from a numpy seed:
+    the main path's largest unit (OPEN_UNIT_WIDTHS on the 2^21-row LDE
+    coset), a unit of odd widths on a shifted source domain at the rows of
+    a mesh shard (row0 > 0), and a unit of 18 members (two launches each).
+    ro_accum writes (`first`) and adds in place.  Timed at the largest unit,
+    ro_accum adding in place (as every group of a height after its first)."""
+    import numpy as np
+
+    from zkvm_brainfuck_tpu_torch.ops import openings as op
+    from zkvm_brainfuck_tpu_torch.ops.field import GENERATOR, P
+
+    rng = np.random.default_rng(9)
+
+    def ef():
+        return tuple(int(x) for x in rng.integers(0, P, 4))
+
+    cases = [("largest unit", OPEN_UNIT_LOG, GENERATOR, 0, 1 << OPEN_UNIT_LOG, OPEN_UNIT_WIDTHS),
+             ("odd widths, shard rows", 9, GENERATOR * 7 % P, 128, 64, (3, 5, 1)),
+             ("18 members", 7, 1, 0, 128, tuple(1 + k % 3 for k in range(18)))]
+    err_o = err_r = 0
+    for name, log_m, shift, row0, h, widths in cases:
+        mats = [rand(h, w) for w in widths]
+        z, s = ef(), ef()
+        aps = rand(sum(widths), 4)
+        args = (z, log_m, shift, row0)
+        err_o = max(err_o, compare(f"open_eval {name}", op.open_eval(mats, *args),
+                                   op.open_eval_plain(mats, *args)))
+        args = (mats, aps, s, z, log_m, shift, row0)
+        err_r = max(err_r, compare(f"ro_accum first {name}", op.ro_accum(None, *args, first=True),
+                                   op.ro_accum_plain(None, *args, first=True)))
+        base = rand(h, 4)
+        err_r = max(err_r, compare(f"ro_accum add {name}", op.ro_accum(base.clone(), *args),
+                                   op.ro_accum_plain(base.clone(), *args)))
+        if name == "largest unit":
+            big = (mats, z, s, aps, log_m, base)
+    mats, z, s, aps, log_m, base = big
+    shape = f"2^{log_m} rows x {'+'.join(map(str, OPEN_UNIT_WIDTHS))} columns"
+    kernels["open_eval"] = dict(
+        max_abs_err=err_o, ms=cuda_ms(torch, lambda: op.open_eval(mats, z, log_m, GENERATOR)),
+        plain_ms=cuda_ms(torch, lambda: op.open_eval_plain(mats, z, log_m, GENERATOR), reps=3),
+        bound=bounds["open_eval"](mats, z, log_m, GENERATOR), shape=f"{shape} -> ({sum(OPEN_UNIT_WIDTHS)}, 4)")
+    acc = base.clone()
+    kernels["ro_accum"] = dict(
+        max_abs_err=err_r,
+        ms=cuda_ms(torch, lambda: op.ro_accum(acc, mats, aps, s, z, log_m, GENERATOR)),
+        plain_ms=cuda_ms(torch, lambda: op.ro_accum_plain(acc, mats, aps, s, z, log_m, GENERATOR),
+                         reps=3),
+        bound=bounds["ro_accum"](acc, mats, aps, s, z, log_m, GENERATOR),
+        shape=f"{shape}, added into (2^{log_m}, 4)")
+    say(f"[kernels] open_eval and ro_accum bit-exact against open_eval_plain and ro_accum_plain "
+        f"at {len(cases)} units ({', '.join(c[0] for c in cases)}; ro_accum writing and adding)")
 
 
 def phase_golden(torch, dev, report):
@@ -866,6 +968,9 @@ def phase_main(torch, dev, report):
         f"(cudaMemsetAsync): {len(scratch)} clears, {sum(scratch)} bytes in all")
     say(f"[main] {len(lde_calls)} LDEs per prove: {want['ntt_block_stages']} ntt_block_stages and "
         f"{want['ntt_stage']} ntt_stage launches, as the LDE shapes require")
+    say(f"[main] opening rounds per prove: {prove_counts['open_eval']} open_eval launches (one a "
+        f"unit, each after a scratch clear) and {prove_counts['ro_accum']} ro_accum launches (one "
+        f"a reduced-opening sub-unit)")
     say(f"[main] {commits} commits per prove: {prove_counts['poseidon2_tree']} poseidon2_tree calls "
         f"(the tree walk), {prove_counts['poseidon2_permute']} poseidon2_permute launches (the grind)")
     say("[main] bound per prove (ms, summed over the launches' shapes): " + ", ".join(
@@ -1348,7 +1453,7 @@ def mesh_prove(torch, mesh, log_cycles, want, label):
     the default settings.  Its vk and proof must be want's bytes (the
     single-device prove of the `label`), it must verify, and a tampered
     proof must be rejected.  The launch counts are set to 0 just before the
-    setup and read after the verify: all six kernels must launch, and the
+    setup and read after the verify: all eight kernels must launch, and the
     4-step NTT's local transform (ntt_block_stages + ntt_stage) must run on
     every shard.  The traces, each commit's LDEs (normal rounds) or evals
     (low-memory rounds), every LDE block made (committed, recomputed for

@@ -25,13 +25,14 @@ from zkvm_brainfuck_tpu.ops import field as jf
 from zkvm_brainfuck_tpu.stark import pcs as jpcs
 from zkvm_brainfuck_tpu.stark import quotient as jquot
 from zkvm_brainfuck_tpu_torch import ProverClient, convert, guests
+from zkvm_brainfuck_tpu_torch.ops import openings
 from zkvm_brainfuck_tpu_torch.sdk import CpuProver
 from zkvm_brainfuck_tpu_torch.stark import pcs
 from zkvm_brainfuck_tpu_torch.stark import prover as prover_mod
 from zkvm_brainfuck_tpu_torch.stark import quotient as tquot
 from zkvm_brainfuck_tpu_torch.stark.challenger import DuplexChallenger
 from zkvm_brainfuck_tpu_torch.stark.config import FriConfig, KoalaBearPoseidon2
-from zkvm_brainfuck_tpu_torch.stark.domains import Domain, domain_points_dev
+from zkvm_brainfuck_tpu_torch.stark.domains import Domain
 from test_torch_sharded import one_torch_thread  # noqa: F401 (autouse)
 
 P = jf.P
@@ -178,7 +179,7 @@ def test_source_domain_evaluations_match_jax():
     jmats = tuple(jf.to_monty(jnp.asarray(m)) for m in mats)
     z_arg = jnp.asarray(np.array(z, np.uint32))
 
-    got = pcs.open_eval_group(tmats, z, domain_points_dev(log_n, shift, torch.device("cpu")))
+    got = openings.open_eval(tmats, z, log_n, shift)
     want = jpcs._open_eval_group_program((log_n, shift), widths)(
         jmats, z_arg, jpcs._domain_points_dev(log_n, shift))
     assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(want))
@@ -186,15 +187,15 @@ def test_source_domain_evaluations_match_jax():
     aps = [_rand(rng, (w, 4)) for w in widths]
     s = _ef(rng)
     ro_in = _rand(rng, (2 << log_n, 4))
-    mats_and_aps = [(m, torch.from_numpy(a.astype(np.int64))) for m, a in zip(tmats, aps)]
+    alpha_pows = torch.from_numpy(np.concatenate(aps).astype(np.int32))
     for first in (True, False):
-        ro = None if first else tuple(torch.from_numpy(ro_in[:, t].astype(np.int32)) for t in range(4))
-        got = pcs.ro_src_accum(ro, mats_and_aps, s, z, log_n, shift)
+        ro = None if first else torch.from_numpy(ro_in.astype(np.int32))
+        got = pcs.ro_src_accum(ro, tmats, alpha_pows, s, z, log_n, shift)
         want = jpcs._ro_src_group_program(log_n, shift, widths, first)(
             jf.to_monty(jnp.asarray(ro_in)) if not first else jnp.zeros((1, 4), jnp.uint32),
             jmats, tuple(jnp.asarray(a) for a in aps), jnp.asarray(np.array(s, np.uint32)), z_arg,
             jpcs._domain_points_dev(log_n, shift), jpcs._commit_aux(((log_n, shift, 4),)))
-        got_arr = torch.stack(got, dim=-1).numpy().astype(np.uint32)
+        got_arr = got.numpy().astype(np.uint32)
         assert np.array_equal(got_arr, np.asarray(jf.from_monty(want))), first
 
 

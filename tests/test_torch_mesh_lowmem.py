@@ -27,6 +27,7 @@ from test_torch_sharded import one_torch_thread  # noqa: F401 (autouse)
 from zkvm_brainfuck_tpu.ops import field as jf
 from zkvm_brainfuck_tpu.stark import pcs as jpcs
 from zkvm_brainfuck_tpu_torch import ProverClient, guests
+from zkvm_brainfuck_tpu_torch.ops import openings
 from zkvm_brainfuck_tpu_torch.ops.field import GENERATOR, P
 from zkvm_brainfuck_tpu_torch.parallel import collectives as co
 from zkvm_brainfuck_tpu_torch.parallel.mesh import (
@@ -39,10 +40,9 @@ from zkvm_brainfuck_tpu_torch.sdk import CpuProver
 from zkvm_brainfuck_tpu_torch.stark import pcs
 from zkvm_brainfuck_tpu_torch.stark import prover as stark_prover
 from zkvm_brainfuck_tpu_torch.stark import quotient as tquot
-from zkvm_brainfuck_tpu_torch.stark.domains import Domain, domain_points_dev
+from zkvm_brainfuck_tpu_torch.stark.domains import Domain
 
 SHARDS = 8
-CPU = torch.device("cpu")
 
 
 def _t(a):
@@ -248,7 +248,7 @@ def test_sharded_source_domain_evaluations_equal_single_device_and_jax(mesh, log
     z_arg = jnp.asarray(np.array(z, np.uint32))
 
     got = pcs._open_eval_sharded(mesh, smats, z, log_n, shift)
-    single = pcs.open_eval_group(tmats, z, domain_points_dev(log_n, shift, CPU))
+    single = openings.open_eval(tmats, z, log_n, shift)
     want = jpcs._open_eval_group_program((log_n, shift), widths)(
         jmats, z_arg, jpcs._domain_points_dev(log_n, shift))
     assert torch.equal(got, single)
@@ -257,19 +257,17 @@ def test_sharded_source_domain_evaluations_equal_single_device_and_jax(mesh, log
     aps = [_rand(rng, (w, 4)) for w in widths]
     s = _ef(rng)
     ro_in = _rand(rng, (2 << log_n, 4))
-    host_aps = [[tuple(int(v) for v in row) for row in a] for a in aps]
+    host_aps = [tuple(int(v) for v in row) for a in aps for row in a]
     for first in (True, False):
-        acc = None if first else [tuple(p[..., t] for t in range(4))
-                                  for p in co.scatter(_t(ro_in), mesh).blocks]
-        parts = pcs._ro_src_accum_sharded(mesh, acc, list(zip(smats, host_aps)), s, z, log_n, shift)
-        assert [p[0].shape[0] for p in parts] == [(2 << log_n) // SHARDS] * SHARDS
-        got = torch.cat([torch.stack(p, dim=-1) for p in parts])
-        ro = None if first else tuple(_t(ro_in[:, t]) for t in range(4))
-        single = pcs.ro_src_accum(ro, [(m, torch.from_numpy(a.astype(np.int64)))
-                                       for m, a in zip(tmats, aps)], s, z, log_n, shift)
+        acc = None if first else list(co.scatter(_t(ro_in), mesh).blocks)
+        parts = pcs._ro_src_accum_sharded(mesh, acc, smats, host_aps, s, z, log_n, shift)
+        assert [p.shape for p in parts] == [((2 << log_n) // SHARDS, 4)] * SHARDS
+        got = torch.cat(parts)
+        ro = None if first else _t(ro_in)
+        single = pcs.ro_src_accum(ro, tmats, _t(np.concatenate(aps)), s, z, log_n, shift)
         want = jpcs._ro_src_group_program(log_n, shift, widths, first)(
             jf.to_monty(jnp.asarray(ro_in)) if not first else jnp.zeros((1, 4), jnp.uint32),
             jmats, tuple(jnp.asarray(a) for a in aps), jnp.asarray(np.array(s, np.uint32)), z_arg,
             jpcs._domain_points_dev(log_n, shift), jpcs._commit_aux(((log_n, shift, 4),)))
-        assert torch.equal(got, torch.stack(single, dim=-1)), first
+        assert torch.equal(got, single), first
         assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(jf.from_monty(want))), first

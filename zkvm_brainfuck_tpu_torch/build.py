@@ -27,8 +27,8 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 # Sources compiled into one library each; headers are hashed into every key.
-CUDA_SOURCES = ("ntt.cu", "poseidon2.cu", "logup.cu")
-CUDA_HEADERS = ("koalabear.cuh",)
+CUDA_SOURCES = ("ntt.cu", "poseidon2.cu", "logup.cu", "openings.cu")
+CUDA_HEADERS = ("koalabear.cuh", "ef4.cuh")
 
 
 def build_dir() -> str:

@@ -124,6 +124,13 @@ def powers_dev(base: int, n: int, device) -> torch.Tensor:
     return p[:n].to(I32)
 
 
+def coset_points(log_n: int, shift: int, row0: int, rows: int, device) -> torch.Tensor:
+    """(rows,) int32 points shift * g^i, i in [row0, row0 + rows), of the
+    coset of the order-2^log_n subgroup generated by g."""
+    g = two_adic_root(log_n)
+    return fmul(powers_dev(g, rows, device), shift * pow(g, row0, P) % P)
+
+
 # ---------------------------------------------------------------------------
 # Host-side exact scalar helpers (Python ints, canonical form)
 # ---------------------------------------------------------------------------

@@ -25,7 +25,7 @@ from .. import build
 
 KERNELS = (
     "ntt_block_stages", "ntt_stage", "poseidon2_hash_rows", "poseidon2_tree",
-    "poseidon2_permute", "logup_entries",
+    "poseidon2_permute", "logup_entries", "open_eval", "ro_accum",
 )
 COUNTS: Dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -36,6 +36,7 @@ _CONSTANTS_ON: set = set()  # (id of the library, device index) holding the Pose
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_uint
 _ARGTYPES = {
     "ntt.cu": {
         "zkbf_set_device": [_I],
@@ -63,10 +64,19 @@ _ARGTYPES = {
         # (n) -> scratch words of zkbf_logup_trace
         "zkbf_logup_scratch_words": [_I],
     },
+    "openings.cu": {
+        "zkbf_set_device": [_I],
+        # (mat ptrs, widths, n_mats, h, g, shift, row0, z, out, scratch, stream)
+        "zkbf_open_eval": [_P, _P, _I, _I, _U, _U, _I, _P, _P, _P, _P],
+        # (total width) -> 8-byte scratch words of zkbf_open_eval
+        "zkbf_open_eval_scratch_words": [_I],
+        # (mat ptrs, widths, n_mats, h, g, shift, row0, z, s, alpha_pows, ro, first, stream)
+        "zkbf_ro_accum": [_P, _P, _I, _I, _U, _U, _I, _P, _P, _P, _P, _I, _P],
+    },
 }
 
 
-_RESTYPES = {"zkbf_logup_scratch_words": _L}
+_RESTYPES = {"zkbf_logup_scratch_words": _L, "zkbf_open_eval_scratch_words": _L}
 
 
 def reset_counts() -> None:

@@ -89,9 +89,8 @@ def domain_points_dev(log_n: int, shift: int, device: torch.device, row0: int = 
                       rows=None) -> torch.Tensor:
     """Points shift * g^i of the domain for i in [row0, row0 + rows) (all of
     them by default: a shard of a mesh asks for its own rows)."""
-    g = xf.two_adic_root(log_n)
     rows = (1 << log_n) - row0 if rows is None else rows
-    return xf.fmul(xf.powers_dev(g, rows, device), shift * pow(g, row0, P) % P)
+    return xf.coset_points(log_n, shift, row0, rows, device)
 
 
 @lru_cache(maxsize=None)

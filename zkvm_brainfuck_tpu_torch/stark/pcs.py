@@ -16,18 +16,21 @@ Counterpart of the JAX package's stark/pcs.py:
     blocks and tree, one round at a time.
 - open: opened values evaluated barycentrically from the LDEs (normal
   rounds) or from the eval matrices on their source domains (low-memory
-  rounds); the transcript observes them, samples the batch-combination
-  alpha, builds one reduced opening per height and runs FRI.  A low-memory
-  round's part of a reduced opening is q = (g - g(z)) / (x - z) on the
-  source domain, carried to the LDE domain by one 4-column LDE.  Query
-  proofs bundle the input-batch Merkle openings and the FRI layer walks.
+  rounds), one `open_eval` launch a unit (ops/openings.py); the transcript
+  observes them, samples the batch-combination alpha, builds one (h, 4)
+  reduced opening per height, one `ro_accum` launch a sub-unit, and runs
+  FRI.  A low-memory round's part of a reduced opening is q = (g - g(z)) /
+  (x - z) on the source domain (`ro_accum` writing), carried to the LDE
+  domain by one 4-column LDE.  Query proofs bundle the input-batch Merkle
+  openings and the FRI layer walks.
 - verify: full host-side replay (numpy), copied from the JAX package.
 - on a mesh (row-sharded eval matrices, `parallel/`), in every mode: the
   LDE blocks stay row-sharded (`sharded_lde_blocks`, the counterpart of
   `_ntt_dispatch`), the digest layer is routed into contiguous leaf ranges
   and each shard walks its subtree (`ShardedMerkleTree`); a low-memory
   round keeps its row-sharded evals and rebuilds the sharded blocks and
-  tree at query time.  Opened values are per-shard sums added by a psum;
+  tree at query time.  Opened values are per-shard sums (each shard's
+  launch on its own device, at its own first row) added by a psum;
   reduced openings are computed per shard (a low-memory sub-unit's q on
   each shard's source rows, then one sharded 4-column LDE) and gathered
   once to the first device for FRI.
@@ -50,7 +53,8 @@ from ..ops import ext as xe
 from ..ops import field as xf
 from ..ops import merkle as mk
 from ..ops import ntt as nt
-from ..ops.field import GENERATOR, I32, I64, P
+from ..ops import openings as op
+from ..ops.field import GENERATOR, I32, P
 from ..parallel import collectives as co
 from ..parallel.mesh import RowMesh, RowSharded, join_cols
 from ..parallel.sharded import (
@@ -62,7 +66,7 @@ from ..parallel.sharded import (
 from ..utils import phases
 from . import ef_host as efh
 from .challenger import DuplexChallenger
-from .domains import Domain, domain_points_dev
+from .domains import Domain
 from .errors import InvalidOpeningArgument, OpeningShapeError
 from .fri import FriProof, _pow_base_vec, fri_check_queries_np, fri_prove, fri_verify_transcript
 
@@ -253,7 +257,7 @@ def pcs_commit(
 
 
 # ---------------------------------------------------------------------------
-# Opening-value evaluation (barycentric from the LDEs)
+# Opening rounds (the device work is ops/openings.py)
 # ---------------------------------------------------------------------------
 
 
@@ -282,41 +286,14 @@ def _open_groups(sig: tuple):
     return list(groups.items())
 
 
-def _inv_x_minus_z(pts: torch.Tensor, z: tuple):
-    """EF planes of inv(x - z) over base points x."""
-    return xe.einv((xf.fsub(pts, z[0]), xf.fsub(0, z[1]), xf.fsub(0, z[2]), xf.fsub(0, z[3])))
-
-
-def _weighted_col_sums(m: torch.Tensor, w: tuple) -> torch.Tensor:
-    """(W, 4) raw sums S_c = sum_i m[i, c] * w(x_i) over the rows (exact)."""
-    out = []
-    for wt in w:
-        out.append(((m.to(I64) * wt.to(I64)[:, None]) % P).sum(0) % P)
-    return torch.stack(out, dim=-1).to(I32)
-
-
-def open_eval_group(mats: Sequence[torch.Tensor], z: tuple, pts: torch.Tensor) -> torch.Tensor:
-    """Opened-value raw sums for ONE (LDE height, point) group, evaluated
-    barycentrically from the LDEs.  For evaluations f(x_i) on the blowup
-    coset g*H (|H| = N'):
-
-        f(z) = (z^N' - g^N')/(N' g^N') * sum_i f(x_i) * x_i / (z - x_i)
-
-    The device computes S_c = sum_i f_c(x_i) * x_i * inv(x_i - z) per column;
-    the host multiplies by -(z^N' - g^N')/(N' g^N').
-    Output: (sum(widths), 4) canonical raw sums."""
-    w = xe.emul_base(_inv_x_minus_z(pts, z), pts)
-    return torch.cat([_weighted_col_sums(m, w) for m in mats])
-
-
 def _open_eval_sharded(mesh: RowMesh, mats: Sequence[RowSharded], z: tuple, log_m: int,
                        shift: int) -> torch.Tensor:
-    """open_eval_group over row-sharded LDEs: each shard's raw sums over its
-    own points, added mod p by a psum (the order cannot change a value)."""
+    """open_eval over row-sharded matrices: each shard's raw sums over its
+    own rows (a launch on its own device), added mod p by a psum (the order
+    cannot change a value)."""
     rows = (1 << log_m) // mesh.size
-    parts = [open_eval_group([m.blocks[k] for m in mats], z,
-                             domain_points_dev(log_m, shift, dev, k * rows, rows))
-             for k, dev in enumerate(mesh.devices)]
+    parts = [op.open_eval([m.blocks[k] for m in mats], z, log_m, shift, row0=k * rows)
+             for k in range(mesh.size)]
     return co.psum(mesh, parts)[0]
 
 
@@ -339,22 +316,6 @@ def _ro_plan(sig: tuple):
     return plan
 
 
-def ro_accum(ro, mats_and_aps, s: tuple, inv_xz):
-    """ro += (sum_k alpha^k f_k(x) - S) * inv(x - z).
-
-    mats_and_aps: (lde (h, w), alpha powers (w, 4) int64 tensor) of the
-    members of one (height, point) group; ro and inv_xz are EF planes (h,)."""
-    a = None
-    for m, ap in mats_and_aps:
-        m64 = m.to(I64)
-        part = tuple(
-            ((m64 * ap[None, :, t]) % P).sum(1) % P for t in range(4)
-        )
-        a = part if a is None else tuple((x + y) % P for x, y in zip(a, part))
-    diff = xe.esub(tuple(x.to(I32) for x in a), s)
-    return xe.eadd(ro, xe.emul(diff, inv_xz))
-
-
 def _open_sig(rounds, zmap: Dict[tuple, int]) -> tuple:
     sig = []
     for data, points_per_mat in rounds:
@@ -368,7 +329,12 @@ def _open_sig(rounds, zmap: Dict[tuple, int]) -> tuple:
 
 def _bary_factor(log_m: int, shift: int, z: tuple) -> tuple:
     """-(z^M - s^M) / (M * s^M): the host scalar completing the barycentric
-    raw sums on the coset shift*H_M (the sign folds inv(x-z) = -inv(z-x))."""
+    raw sums on the coset shift*H_M.  For evaluations f(x_i) on s*H_M,
+
+        f(z) = (z^M - s^M)/(M s^M) * sum_i f(x_i) * x_i / (z - x_i);
+
+    `open_eval` sums f(x_i) * x_i * inv(x_i - z), so the sign folds
+    inv(x-z) = -inv(z-x)."""
     m = 1 << log_m
     s_m = pow(shift, m, P)
     num = efh.add_base(efh.epow(z, m), P - s_m)
@@ -376,17 +342,17 @@ def _bary_factor(log_m: int, shift: int, z: tuple) -> tuple:
     return efh.neg(efh.mul_base(num, den_inv))
 
 
-def ro_src_accum(ro, mats_and_aps, s: tuple, z: tuple, log_n: int, shift: int):
+def ro_src_accum(ro, mats: Sequence[torch.Tensor], alpha_pows: torch.Tensor, s: tuple, z: tuple,
+                 log_n: int, shift: int) -> torch.Tensor:
     """A low-memory sub-unit's part of a reduced opening, from its members'
-    evals on the source domain shift*H_n: q = (g - S) * inv(x - z) there,
-    g = sum_k alpha^k f_k and S = g(z) (an exact division), then ONE 4-column
-    LDE onto GENERATOR*H_2n, added into ro (None starts from zero).  The
-    same values as ro_accum over the members' LDEs."""
-    device = mats_and_aps[0][0].device
-    pts = domain_points_dev(log_n, shift, device)
-    q = ro_accum(xe.ezeros((1 << log_n,), device=device), mats_and_aps, s, _inv_x_minus_z(pts, z))
-    contrib = xe.from_array(lde(xe.to_array(q), log_n, shift))
-    return contrib if ro is None else xe.eadd(ro, contrib)
+    evals on the source domain shift*H_n: q = (g - S) * inv(x - z) there
+    (`ro_accum` with `first`), g = sum_k alpha^k f_k and S = g(z) (an exact
+    division), then ONE 4-column LDE onto GENERATOR*H_2n, added into the
+    (2n, 4) reduced opening ro (None starts from zero).  The same values as
+    ro_accum over the members' LDEs."""
+    q = op.ro_accum(None, mats, alpha_pows, s, z, log_n, shift, first=True)
+    contrib = lde(q, log_n, shift)
+    return contrib if ro is None else xf.fadd(ro, contrib)
 
 
 def pcs_open(
@@ -435,9 +401,8 @@ def pcs_open(
         mats = [rounds[r][0].evals[i] if lowmem else rounds[r][0].ldes[i] for r, i, _pi in members]
         if mesh is not None:
             pieces.append(_open_eval_sharded(mesh, mats, z_by_index[zi], log_m, shift))
-            continue
-        pts = domain_points_dev(log_m, shift, device)
-        pieces.append(open_eval_group(mats, z_by_index[zi], pts))
+        else:
+            pieces.append(op.open_eval(mats, z_by_index[zi], log_m, shift))
     raw = [p.cpu().numpy() for p in pieces]
 
     opened_values = [
@@ -470,7 +435,7 @@ def pcs_open(
     # (offsets in member order) and its own S.  On a mesh each shard
     # accumulates its own rows; the sums are gathered once, for FRI.
     alpha_pows_host = _ef_powers_host(alpha, _total_alpha_budget(rounds))
-    ro: Dict[int, tuple] = {}
+    ro: Dict[int, object] = {}  # log_h -> (h, 4) (a list of per-shard parts on a mesh)
     for log_h, zi, members, c0, _w_total in _ro_plan(sig):
         z = z_by_index[zi]
         sub_units: Dict[tuple, list] = {}
@@ -482,33 +447,29 @@ def pcs_open(
             off += w
         for key, ms in sorted(sub_units.items()):
             s = efh.ZERO
-            mats_and_aps = []
+            mats, aps = [], []
             for r, i, pi, w, m_off in ms:
                 for k, y in enumerate(opened_values[r][i][pi]):
                     s = efh.add(s, efh.mul(alpha_pows_host[m_off + k], y))
-                ap = alpha_pows_host[m_off : m_off + w]
+                aps += alpha_pows_host[m_off : m_off + w]
                 data = rounds[r][0]
-                mats_and_aps.append((data.evals[i] if data.lowmem else data.ldes[i], ap))
+                mats.append(data.evals[i] if data.lowmem else data.ldes[i])
             if mesh is not None:
                 if key[0] == "src":
-                    ro[log_h] = _ro_src_accum_sharded(mesh, ro.get(log_h), mats_and_aps, s, z,
+                    ro[log_h] = _ro_src_accum_sharded(mesh, ro.get(log_h), mats, aps, s, z,
                                                       key[1], key[2])
                 else:
-                    ro[log_h] = _ro_accum_sharded(mesh, ro.get(log_h), mats_and_aps, s, z, log_h)
+                    ro[log_h] = _ro_accum_sharded(mesh, ro.get(log_h), mats, aps, s, z, log_h)
                 continue
-            mats_and_aps = [(m, torch.tensor(ap, dtype=I64, device=device)) for m, ap in mats_and_aps]
+            aps = torch.tensor(aps, dtype=I32, device=device)
             if key[0] == "src":
-                ro[log_h] = ro_src_accum(ro.get(log_h), mats_and_aps, s, z, key[1], key[2])
+                ro[log_h] = ro_src_accum(ro.get(log_h), mats, aps, s, z, key[1], key[2])
             else:
-                pts = domain_points_dev(log_h, GENERATOR, device)
-                acc = ro.get(log_h)
-                if acc is None:
-                    acc = xe.ezeros((1 << log_h,), device=device)
-                ro[log_h] = ro_accum(acc, mats_and_aps, s, _inv_x_minus_z(pts, z))
+                ro[log_h] = op.ro_accum(ro.get(log_h), mats, aps, s, z, log_h, GENERATOR,
+                                        first=log_h not in ro)
     if mesh is not None:
-        ro = {log_h: xe.from_array(RowSharded(mesh, [xe.to_array(p) for p in parts],
-                                              (1 << log_h, 4)).gather())
-              for log_h, parts in ro.items()}
+        ro = {log_h: RowSharded(mesh, parts, (1 << log_h, 4)).gather() for log_h, parts in ro.items()}
+    ro = {log_h: xe.from_array(v) for log_h, v in ro.items()}  # EF planes (views) for FRI
     timings["reduced_open"] = elapsed(t0, device)
     phases.add("reduced_open", timings["reduced_open"])
 
@@ -540,35 +501,30 @@ def pcs_open(
     return opened_values, PcsProof(fri=fri_proof, query_input_openings=query_input_openings)
 
 
-def _ro_accum_sharded(mesh: RowMesh, acc, mats_and_aps, s: tuple, z: tuple, log_h: int):
-    """ro_accum on each shard's rows of the LDE coset; acc is the list of
-    per-shard EF planes (None starts from zero)."""
+def _ro_accum_sharded(mesh: RowMesh, acc, mats: Sequence[RowSharded], aps: List[tuple], s: tuple,
+                      z: tuple, log_h: int):
+    """ro_accum on each shard's rows of the LDE coset (a launch on its own
+    device); acc is the list of per-shard (rows, 4) parts (None starts from
+    zero), aps the host alpha powers of the columns."""
     rows = (1 << log_h) // mesh.size
-    out = []
-    for k, dev in enumerate(mesh.devices):
-        pts = domain_points_dev(log_h, GENERATOR, dev, k * rows, rows)
-        start = xe.ezeros((rows,), device=dev) if acc is None else acc[k]
-        members = [(m.blocks[k], torch.tensor(ap, dtype=I64, device=dev)) for m, ap in mats_and_aps]
-        out.append(ro_accum(start, members, s, _inv_x_minus_z(pts, z)))
-    return out
+    return [op.ro_accum(None if acc is None else acc[k], [m.blocks[k] for m in mats],
+                        torch.tensor(aps, dtype=I32, device=dev), s, z, log_h, GENERATOR,
+                        row0=k * rows, first=acc is None)
+            for k, dev in enumerate(mesh.devices)]
 
 
-def _ro_src_accum_sharded(mesh: RowMesh, acc, mats_and_aps, s: tuple, z: tuple, log_n: int,
-                          shift: int):
+def _ro_src_accum_sharded(mesh: RowMesh, acc, mats: Sequence[RowSharded], aps: List[tuple],
+                          s: tuple, z: tuple, log_n: int, shift: int):
     """ro_src_accum over row-sharded evals on the source domain shift*H_n:
     each shard's q = (g - S) * inv(x - z) on its own source rows, one
     sharded 4-column LDE of q onto GENERATOR*H_2n, added into the per-shard
-    EF planes acc of the LDE rows (None starts from zero)."""
+    (rows, 4) parts acc of the LDE rows (None starts from zero)."""
     rows = (1 << log_n) // mesh.size
-    q = []
-    for k, dev in enumerate(mesh.devices):
-        pts = domain_points_dev(log_n, shift, dev, k * rows, rows)
-        members = [(m.blocks[k], torch.tensor(ap, dtype=I64, device=dev)) for m, ap in mats_and_aps]
-        q.append(xe.to_array(ro_accum(xe.ezeros((rows,), device=dev), members, s,
-                                      _inv_x_minus_z(pts, z))))
+    q = [op.ro_accum(None, [m.blocks[k] for m in mats], torch.tensor(aps, dtype=I32, device=dev),
+                     s, z, log_n, shift, row0=k * rows, first=True)
+         for k, dev in enumerate(mesh.devices)]
     contrib = sharded_coset_lde(RowSharded(mesh, q, (1 << log_n, 4)), LOG_BLOWUP, _lde_shift(shift))
-    parts = [xe.from_array(b) for b in contrib.blocks]
-    return parts if acc is None else [xe.eadd(a, c) for a, c in zip(acc, parts)]
+    return contrib.blocks if acc is None else [xf.fadd(a, c) for a, c in zip(acc, contrib.blocks)]
 
 
 def _lowmem_round_openings(data: PcsProverData, idx: np.ndarray, log_global: int):
