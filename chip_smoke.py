@@ -9,7 +9,7 @@ result line:
 1. device: the card's name and power limit (nvidia-smi).
 2. build: the CUDA kernels (csrc/*.cu, one nvcc each, in parallel) and the
    native guest executor.
-3. kernels: each of the eight kernels against its plain PyTorch version on
+3. kernels: each of the nine kernels against its plain PyTorch version on
    the card, on the same random inputs at the shapes of the main path
    (bit-exact: integer field arithmetic, tolerance 0), with CUDA-event times
    (median of 5 after a warm-up) and the bound of each launch.  The LogUp
@@ -20,6 +20,12 @@ result line:
    opening kernels (open_eval, ro_accum) are held at the main path's
    largest opening unit, at a small unit of odd widths on a shifted domain
    at a shard's rows, and at a unit of more members than one launch takes.
+   The quotient (one kernel a chip, generated from the chip's constraints)
+   is held for all 8 chips at the main path's coset heights on a whole LDE,
+   in 8-column blocks and at a mesh shard's rows with a halo, and for the
+   Cpu chip without LogUp (the uni-STARK's);
+   each chip's launch is timed, and ptxas's registers and spills of each
+   generated kernel are printed from the build.
 4. golden: the card-path uni-STARK proof of the golden guest at 84 queries
    must equal tests/golden/uni_cpu_<guest>_q84.json (made by the JAX
    package) byte for byte.
@@ -147,6 +153,7 @@ REPLACES = {
     "logup_scan": "zkvm_brainfuck_tpu/stark/permutation.py:215",
     "open_eval": "zkvm_brainfuck_tpu/stark/pcs.py:467",
     "ro_accum": "zkvm_brainfuck_tpu/stark/pcs.py:542",
+    "quotient_eval": "zkvm_brainfuck_tpu/stark/quotient.py:94",
 }
 # Functions that have no kernel of their own: {function: the kernel that
 # computes it}.  They keep an entry in the kernels line.
@@ -161,6 +168,7 @@ SOURCES = {
     "logup_scan": "zkvm_brainfuck_tpu_torch/csrc/logup.cu",
     "open_eval": "zkvm_brainfuck_tpu_torch/csrc/openings.cu",
     "ro_accum": "zkvm_brainfuck_tpu_torch/csrc/openings.cu",
+    "quotient_eval": "zkvm_brainfuck_tpu_torch/csrc/quotient.cuh",
 }
 # The device functions of each kernel, as the profiler names them.
 DEVICE_FUNCS = {
@@ -172,13 +180,18 @@ DEVICE_FUNCS = {
     "logup_entries": ("entries_kernel",),
     "open_eval": ("open_eval_kernel",),
     "ro_accum": ("ro_accum_kernel",),
+    "quotient_eval": ("quotient_kernel",),
 }
 UNI_KERNELS = ("ntt_block_stages", "ntt_stage", "poseidon2_hash_rows", "poseidon2_tree",
-               "poseidon2_permute", "open_eval", "ro_accum")
+               "poseidon2_permute", "open_eval", "ro_accum", "quotient_eval")
 # The main path's largest opening unit: its 2^21-row LDEs opened at zeta,
 # in round order (the AddSub and Cpu main traces, their permutation traces,
 # and two 4-column quotient chunks of each).
 OPEN_UNIT_LOG, OPEN_UNIT_WIDTHS = SLICE_LOG + 1, (7, 31, 16, 36, 4, 4, 4, 4)
+# The main path's quotient launches: the coset rows of each chip at 2^20
+# (twice its trace rows, PERF.md section 4).
+QUOTIENT_LOG = {"Cpu": 21, "AddSub": 21, "Jump": 20, "Program": 18, "Byte": 17,
+                "MemoryInstrs": 13, "IO": 5, "Memory": 5}
 GOLDEN_QUERIES, GOLDEN_POW_BITS = 84, 16
 TRANSCRIPT_SEGMENTS = [("S1 setup", 0, 15), ("S2 main commit", 15, 31), ("S3 LogUp", 31, 67),
                        ("S4 quotient", 67, 79), ("S5 open", 79, 1741)]
@@ -246,6 +259,8 @@ def launch_bounds():
     from zkvm_brainfuck_tpu_torch.ops import ntt as nt
     from zkvm_brainfuck_tpu_torch.ops import openings as op
     from zkvm_brainfuck_tpu_torch.ops import poseidon2 as p2
+    from zkvm_brainfuck_tpu_torch.ops import quotient as oq
+    from zkvm_brainfuck_tpu_torch.stark import codegen
 
     def block_stages(x, log_n, k, inverse=False, factors=None):
         m, w = x.shape
@@ -306,6 +321,20 @@ def launch_bounds():
                      elems * 4 * (MUL_INSTR + ADD_INSTR)
                      + h * ((EF4_INV_MULS + 16) * MUL_INSTR + (16 if first else 20) * ADD_INSTR))
 
+    def quotient(chip, main, prep, perm, sels, next_step, perm_challenges, alpha, cumulative_sum,
+                 halo=None):
+        """Each column the chip's program reads (its halo rows too), the
+        selectors it reads and the inverse zeroifier read once, the (rows,
+        4) result written; the products and additions of the generated
+        program a row (stark/codegen.py counts: the constraints, their
+        fold, the conversions into Montgomery form at load and the product
+        by the inverse zeroifier)."""
+        c = codegen.program(chip, perm is not None).counts
+        rows = int(main[0].shape[0])
+        read = c["columns"] * (rows + (next_step if halo is not None else 0))
+        return bound(4 * read + 4 * rows * (c["selectors"] + 1) + 16 * rows,
+                     rows * (c["products"] * MUL_INSTR + c["additions"] * ADD_INSTR))
+
     return {
         "ntt_block_stages": (nt, "ntt_block_stages", block_stages),
         "ntt_stage": (nt, "ntt_stage", stage),
@@ -315,6 +344,7 @@ def launch_bounds():
         "logup_entries": (lu, "logup_trace", entries),
         "open_eval": (op, "open_eval", open_eval),
         "ro_accum": (op, "ro_accum", ro_accum),
+        "quotient_eval": (oq, "quotient_eval", quotient),
     }
 
 
@@ -502,6 +532,7 @@ def phase_kernels(torch, dev, report):
                                         shape=f"({1 << 17}, 16) -> ({1 << 17}, 8)")
     logup_kernels(torch, dev, rand, compare, kernels, bounds)
     opening_kernels(torch, rand, compare, kernels, bounds)
+    quotient_kernels(torch, dev, rand, compare, kernels, bounds)
     torch.cuda.synchronize()
     for name, k in kernels.items():
         say(f"[kernels] {name} {k['shape']}: bit-exact; kernel {k['ms']:.4f} ms, "
@@ -680,6 +711,110 @@ def opening_kernels(torch, rand, compare, kernels, bounds):
         f"at {len(cases)} units ({', '.join(c[0] for c in cases)}; ro_accum writing and adding)")
 
 
+def quotient_kernels(torch, dev, rand, compare, kernels, bounds):
+    """quotient_eval against quotient_rows_plain, bit for bit, on random
+    LDE columns and challenges (a numpy seed): every chip at its main-path
+    coset height (QUOTIENT_LOG) on a whole LDE whose next rows wrap, in
+    8-column blocks (the low-memory 2^22 layout: EF4 planes straddle
+    blocks) and at the rows of a shard of 4 (row0 = Nq/4) in 8-column
+    blocks with the next shard's first rows as its halo; the Cpu chip
+    without LogUp (the uni-STARK's kernel).  Each chip's whole-LDE launch
+    is timed; the entry is the Cpu chip's."""
+    import numpy as np
+
+    from zkvm_brainfuck_tpu_torch.models.machine_def import brainfuck_chips
+    from zkvm_brainfuck_tpu_torch.ops import quotient as oq
+    from zkvm_brainfuck_tpu_torch.ops.field import P
+    from zkvm_brainfuck_tpu_torch.stark import codegen
+    from zkvm_brainfuck_tpu_torch.stark import quotient as tquot
+    from zkvm_brainfuck_tpu_torch.stark.chip import Chip
+    from zkvm_brainfuck_tpu_torch.stark.domains import Domain, selectors_on_coset
+
+    rng = np.random.default_rng(10)
+
+    def ef():
+        return tuple(int(x) for x in rng.integers(0, P, 4))
+
+    def blocked(m, rows=slice(None)):
+        if m is None:
+            return None
+        return [m[rows, c:c + 8].contiguous() for c in range(0, m.shape[1], 8)]
+
+    err, per_chip = 0, {}
+    for air in brainfuck_chips():
+        chip = Chip(air)
+        log_q = QUOTIENT_LOG[chip.name]
+        nq = 1 << log_q
+        td = Domain(log_q - 1, 1)
+        qd = td.create_disjoint_domain(nq)
+        sels = selectors_on_coset(td.log_n, qd.log_n, qd.shift, dev)
+        main = rand(nq, chip.width)
+        prep = rand(nq, chip.preprocessed_width) if chip.preprocessed_width else None
+        perm = rand(nq, 4 * chip.permutation_width)
+        ch = dict(perm_challenges=(ef(), ef()), alpha=ef(), cumulative_sum=ef())
+        args = ([main], None if prep is None else [prep], [perm], sels, 2)
+        want = tquot.quotient_rows_plain(chip, *args, **ch)
+        err = max(err, compare(f"quotient_eval {chip.name}", oq.quotient_eval(chip, *args, **ch),
+                               want))
+        ms = cuda_ms(torch, lambda: oq.quotient_eval(chip, *args, **ch))
+        per_chip[chip.name] = {"coset_rows": nq, "ms": ms, "counts": codegen.program(chip).counts,
+                               "bound": bounds["quotient_eval"](chip, *args, **ch)}
+        got = oq.quotient_eval(chip, blocked(main), blocked(prep), blocked(perm), sels, 2, **ch)
+        err = max(err, compare(f"quotient_eval {chip.name} 8-column blocks", got, want))
+        rows = row0 = nq // 4
+        sub, nxt = slice(row0, row0 + rows), slice(row0 + rows, row0 + rows + 2)
+        ssels = selectors_on_coset(td.log_n, qd.log_n, qd.shift, dev, row0, rows)
+        got = oq.quotient_eval(chip, blocked(main, sub), blocked(prep, sub), blocked(perm, sub),
+                               ssels, 2, **ch, halo=(blocked(main, nxt), blocked(prep, nxt),
+                                                     blocked(perm, nxt)))
+        err = max(err, compare(f"quotient_eval {chip.name} shard", got, want[sub]))
+        if chip.name == "Cpu":
+            timed = (chip, args, ch)
+    chip, args, ch = timed
+    uni = dict(perm_challenges=None, alpha=ch["alpha"], cumulative_sum=None)
+    uni_args = (args[0], None, None, args[3], 2)
+    err = max(err, compare("quotient_eval Cpu without LogUp",
+                           oq.quotient_eval(chip, *uni_args, **uni),
+                           tquot.quotient_rows_plain(chip, *uni_args, **uni)))
+    nq = int(args[0][0].shape[0])
+    kernels["quotient_eval"] = dict(
+        max_abs_err=err, ms=per_chip["Cpu"]["ms"],
+        plain_ms=cuda_ms(torch, lambda: tquot.quotient_rows_plain(chip, *args, **ch), reps=3),
+        bound=per_chip["Cpu"]["bound"], library_ms=None, per_chip=per_chip,
+        shape=f"Cpu: 2^{nq.bit_length() - 1} coset rows x ({chip.width} + "
+              f"{4 * chip.permutation_width}) columns -> ({nq}, 4)")
+    for name, v in per_chip.items():
+        say(f"[kernels] quotient_eval {name:12s} at {v['coset_rows']:8d} coset rows: bit-exact; "
+            f"{v['ms']:.4f} ms, bound {v['bound'][0]:.4f} ms ({v['bound'][1]}); a row: "
+            f"{v['counts']['products']} products, {v['counts']['additions']} additions, "
+            f"{v['counts']['columns']} columns")
+    say(f"[kernels] quotient_eval bit-exact for all {len(per_chip)} chips on a whole LDE, in "
+        f"8-column blocks and at a shard's rows with a halo, and for Cpu without LogUp")
+
+
+def quotient_ptxas(report):
+    """Registers and spills of each generated quotient kernel, from the
+    build's ptxas output (build.LOGS; empty for a library built earlier)."""
+    import re
+
+    from zkvm_brainfuck_tpu_torch import build
+
+    out = {}
+    for name in build.quotient_sources():
+        log = build.LOGS.get(name, "")
+        regs = re.search(r"Used (\d+) registers", log)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+        stack = re.search(r"(\d+) bytes stack frame", log)
+        out[name] = {"registers": int(regs.group(1)) if regs else None,
+                     "spill_stores": int(spill.group(1)) if spill else None,
+                     "spill_loads": int(spill.group(2)) if spill else None,
+                     "stack_frame": int(stack.group(1)) if stack else None}
+    report["quotient_ptxas"] = out
+    say("[build] quotient_kernel ptxas (registers / spill stores / spill loads, bytes): "
+        + ", ".join(f"{k} {v['registers']} / {v['spill_stores']} / {v['spill_loads']}"
+                    for k, v in out.items()))
+
+
 def phase_golden(torch, dev, report):
     from zkvm_brainfuck_tpu_torch import convert, guests
     from zkvm_brainfuck_tpu_torch.core.executor import execute
@@ -846,6 +981,7 @@ def phase_main(torch, dev, report):
     from zkvm_brainfuck_tpu_torch.ops import merkle as mk
     from zkvm_brainfuck_tpu_torch.ops import ntt as nt
     from zkvm_brainfuck_tpu_torch.stark import pcs
+    from zkvm_brainfuck_tpu_torch.stark import quotient as tquot
     from zkvm_brainfuck_tpu_torch.stark.errors import VerificationFailure
     from zkvm_brainfuck_tpu_torch.stark.types import MachineProof
 
@@ -855,6 +991,7 @@ def phase_main(torch, dev, report):
     assert (fri.num_queries, fri.proof_of_work_bits) == (QUERIES, GOLDEN_POW_BITS), fri
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    plain_before = tquot.PLAIN_CALLS
     kn.reset_counts()
     t0 = time.time()
     pk, vk = client.setup(src)
@@ -867,6 +1004,7 @@ def phase_main(torch, dev, report):
     client.verify(proof, vk)
     verify_s = time.time() - t0
     counts = dict(kn.COUNTS)
+    plain_calls = tquot.PLAIN_CALLS - plain_before
     peak = torch.cuda.max_memory_allocated()
     missing = [k for k, v in counts.items() if v <= 0]
     if missing:
@@ -941,7 +1079,14 @@ def phase_main(torch, dev, report):
     scratch = [4 * logup_lib.zkbf_logup_scratch_words(ch["rows"]) for ch in chips]
     if prove_counts["logup_entries"] != len(chips):
         raise AssertionError(f"{prove_counts['logup_entries']} LogUp launches for {len(chips)} chips")
+    # The quotient: one generated kernel's launch a chip, and no eager
+    # evaluation (the plain version's transposed and rolled copies).
+    if prove_counts["quotient_eval"] != len(chips) or plain_calls != 0:
+        raise AssertionError(f"{prove_counts['quotient_eval']} quotient launches for {len(chips)} "
+                             f"chips and {plain_calls} calls of the plain quotient")
     report["main"] = {"cycles": proof.proof.cycles, "queries": QUERIES, "pow_bits": GOLDEN_POW_BITS,
+                      "quotient_prove": {"launches": prove_counts["quotient_eval"],
+                                         "plain_calls": plain_calls},
                       "logup_prove": {"launches": prove_counts["logup_entries"],
                                       "scratch_clears": len(scratch), "scratch_bytes": scratch},
                       "phases_s": phases, "peak_bytes": peak, "launches": counts,
@@ -966,6 +1111,9 @@ def phase_main(torch, dev, report):
     say(f"[main] LogUp per prove: {prove_counts['logup_entries']} launches of the fused kernel "
         f"(entries and running sum; no scan launch), each after a scratch clear "
         f"(cudaMemsetAsync): {len(scratch)} clears, {sum(scratch)} bytes in all")
+    say(f"[main] quotient per prove: {prove_counts['quotient_eval']} quotient_eval launches (one "
+        f"generated kernel a chip, on the LDE blocks in place) and {plain_calls} calls of the "
+        f"plain quotient (no eager evaluation, transpose or roll) in setup, prove and verify")
     say(f"[main] {len(lde_calls)} LDEs per prove: {want['ntt_block_stages']} ntt_block_stages and "
         f"{want['ntt_stage']} ntt_stage launches, as the LDE shapes require")
     say(f"[main] opening rounds per prove: {prove_counts['open_eval']} open_eval launches (one a "
@@ -1280,6 +1428,7 @@ def phase_scale(torch, dev, report):
     from zkvm_brainfuck_tpu_torch import ProverClient, guests
     from zkvm_brainfuck_tpu_torch.ops import kernels as kn
     from zkvm_brainfuck_tpu_torch.ops import ntt as nt
+    from zkvm_brainfuck_tpu_torch.stark import quotient as tquot
 
     t0 = time.time()
     nt.bit_reversal_perm.__wrapped__(SCALE_LOG + 1)  # uncached, so cold
@@ -1300,6 +1449,7 @@ def phase_scale(torch, dev, report):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             kn.reset_counts()
+            plain_before = tquot.PLAIN_CALLS
             with phase_peaks(torch) as seen:
                 proof = client.prove(pk, b"").run()
             torch.cuda.synchronize()
@@ -1313,8 +1463,10 @@ def phase_scale(torch, dev, report):
         if proof.proof.cycles != (1 << SCALE_LOG) - 1:
             raise AssertionError(f"2^{SCALE_LOG} guest ran {proof.proof.cycles} cycles")
         missing = [k for k, v in counts.items() if v <= 0]
-        if missing:
-            raise AssertionError(f"kernels not launched by the {mode} 2^{SCALE_LOG} prove: {missing}")
+        if missing or tquot.PLAIN_CALLS != plain_before:
+            raise AssertionError(f"kernels not launched by the {mode} 2^{SCALE_LOG} prove: "
+                                 f"{missing}; {tquot.PLAIN_CALLS - plain_before} plain quotient "
+                                 f"calls")
         proofs[mode] = proof.proof.proof.to_bytes()
         phases = dict(proof.proof.timings, verify=verify_s)
         if default is None:
@@ -1473,6 +1625,7 @@ def mesh_prove(torch, mesh, log_cycles, want, label):
     from zkvm_brainfuck_tpu_torch.stark import machine as stark_machine
     from zkvm_brainfuck_tpu_torch.stark import pcs
     from zkvm_brainfuck_tpu_torch.stark import prover as stark_prover
+    from zkvm_brainfuck_tpu_torch.stark import quotient as tquot
     from zkvm_brainfuck_tpu_torch.stark.errors import VerificationFailure
     from zkvm_brainfuck_tpu_torch.stark.types import MachineProof
 
@@ -1500,6 +1653,7 @@ def mesh_prove(torch, mesh, log_cycles, want, label):
     torch.cuda.reset_peak_memory_stats()
     kn.reset_counts()
     co.reset_bytes()
+    plain_before = tquot.PLAIN_CALLS
     set_shard_mesh(mesh)
     try:
         with capturing(targets) as seen, recording(
@@ -1528,8 +1682,9 @@ def mesh_prove(torch, mesh, log_cycles, want, label):
     verify_s = time.time() - t0
     counts = dict(kn.COUNTS)
     missing = [k for k, v in counts.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the 2^{log_cycles} mesh path: {missing}")
+    if missing or tquot.PLAIN_CALLS != plain_before:
+        raise AssertionError(f"kernels not launched on the 2^{log_cycles} mesh path: {missing}; "
+                             f"{tquot.PLAIN_CALLS - plain_before} plain quotient calls")
     shards = sorted({note for _tag, note in local})
     if shards != list(range(mesh.size)) or counts["ntt_block_stages"] < len(local):
         raise AssertionError(f"the 4-step NTT's local transform ran on shards {shards} "
@@ -1604,8 +1759,10 @@ def main() -> int:
     build.build_all(verbose=True)
     report["build_s"] = time.time() - t0
     say(f"[build] kernels + executor built in {report['build_s']:.1f} s")
+    quotient_ptxas(report)
 
     kernels = phase_kernels(torch, dev, report)
+    report["quotient_per_chip"] = kernels["quotient_eval"]["per_chip"]
     phase_golden(torch, dev, report)
     phase_golden_main(torch, dev, report)
     phase_slice(torch, dev, report)

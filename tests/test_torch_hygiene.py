@@ -109,7 +109,7 @@ def test_every_kernel_is_registered_with_the_smoke_run():
     from zkvm_brainfuck_tpu_torch.ops import kernels as kn
 
     names = set(kn.KERNELS)
-    assert "poseidon2_tree" in names and len(names) == 8
+    assert {"poseidon2_tree", "quotient_eval"} <= names and len(names) == 9
     assert set(kn.COUNTS) == names
     assert chip_smoke.FUSED == {"logup_scan": "logup_entries"}
     for table in (chip_smoke.DEVICE_FUNCS, chip_smoke.launch_bounds()):

@@ -1,6 +1,8 @@
 """ctypes bindings of the hand-written CUDA kernels, and their launch counts.
 
-Each `csrc/*.cu` file is a shared library with a plain C interface: every
+Each `csrc/*.cu` file, and each chip's generated quotient kernel
+(stark/codegen.py over `csrc/quotient.cuh`), is a shared library with a
+plain C interface: every
 launcher takes device pointers, sizes and a `cudaStream_t`, launches on that
 stream, and returns `cudaGetLastError()`.  The libraries are built and
 loaded at first launch (`build.py`), never at import.  A library links the
@@ -25,12 +27,12 @@ from .. import build
 
 KERNELS = (
     "ntt_block_stages", "ntt_stage", "poseidon2_hash_rows", "poseidon2_tree",
-    "poseidon2_permute", "logup_entries", "open_eval", "ro_accum",
+    "poseidon2_permute", "logup_entries", "open_eval", "ro_accum", "quotient_eval",
 )
 COUNTS: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _LOCK = threading.Lock()
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[object, ctypes.CDLL] = {}  # by source, or (name, text) of a generated one
 _CONSTANTS_ON: set = set()  # (id of the library, device index) holding the Poseidon2 constants
 
 _P = ctypes.c_void_p
@@ -73,6 +75,13 @@ _ARGTYPES = {
         # (mat ptrs, widths, n_mats, h, g, shift, row0, z, s, alpha_pows, ro, first, stream)
         "zkbf_ro_accum": [_P, _P, _I, _I, _U, _U, _I, _P, _P, _P, _P, _I, _P],
     },
+    # every generated quotient library
+    "quotient": {
+        "zkbf_set_device": [_I],
+        # (local ptrs, halo ptrs, strides, halo strides, n_cols, sel ptrs, prm, n_prm, rows,
+        #  step, out, stream)
+        "zkbf_quotient": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P],
+    },
 }
 
 
@@ -91,12 +100,7 @@ def lib(source: str, device=None) -> ctypes.CDLL:
     index = _index(device)
     with _LOCK:
         if source not in _LIBS:
-            path = build.build_cuda([source])[source]
-            handle = ctypes.CDLL(path)
-            for fn, argtypes in _ARGTYPES[source].items():
-                getattr(handle, fn).argtypes = argtypes
-                getattr(handle, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
-            _LIBS[source] = handle
+            _LIBS[source] = _open(build.build_cuda([source])[source], _ARGTYPES[source])
         handle = _LIBS[source]
         check(handle.zkbf_set_device(index), "zkbf_set_device")
         if source == "poseidon2.cu" and (id(handle), index) not in _CONSTANTS_ON:
@@ -109,6 +113,28 @@ def lib(source: str, device=None) -> ctypes.CDLL:
                   "zkbf_p2_set_constants")
             _CONSTANTS_ON.add((id(handle), index))
         return handle
+
+
+def generated_lib(name: str, text: str, device=None) -> ctypes.CDLL:
+    """The loaded library of a generated quotient kernel (`name`, its
+    source `text`; built on first use), its current device set to
+    `device`."""
+    index = _index(device)
+    key = (name, text)
+    with _LOCK:
+        if key not in _LIBS:
+            _LIBS[key] = _open(build.build_generated({name: text})[name], _ARGTYPES["quotient"])
+        handle = _LIBS[key]
+        check(handle.zkbf_set_device(index), "zkbf_set_device")
+        return handle
+
+
+def _open(path: str, argtypes: dict) -> ctypes.CDLL:
+    handle = ctypes.CDLL(path)
+    for fn, types in argtypes.items():
+        getattr(handle, fn).argtypes = types
+        getattr(handle, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
+    return handle
 
 
 def _index(device) -> int:

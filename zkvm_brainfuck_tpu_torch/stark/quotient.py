@@ -6,11 +6,15 @@ LogUp permutation constraints) over every coset point, fold them with the
 alpha powers of folder.rs:68-72, multiply by the inverse zeroifier, and
 return the EF4 quotient evaluations.
 
-Every constraint is evaluated over whole coset columns with the
-`TorchBackend` (eager torch); the next row is the coset column rolled by
-the blowup.  Constraint j of K gets the exact host weight alpha^(K-1-j)
-(the alpha-Horner fold written as a sum), and the base and extension
-constraints are stacked and folded with one weighted mod-p sum each.  The
+`quotient_values` hands each device's (or mesh shard's) LDE column blocks,
+in place, to ops/quotient.py `quotient_eval`: on the card one launch of the
+chip's generated kernel (stark/codegen.py).  The plain version,
+`quotient_rows_plain`, evaluates every constraint over whole coset columns
+with the `TorchBackend` (eager torch), the next row being the coset column
+rolled by the blowup (or shifted, with the next shard's halo); constraint j
+of K gets the exact host weight alpha^(K-1-j) (the alpha-Horner fold
+written as a sum), and the base and extension constraints are stacked and
+folded with one weighted mod-p sum each.  It runs on any device.  The
 uni-STARK quotient (stark/uni.py) is the case without preprocessed or
 permutation columns.
 """
@@ -23,6 +27,7 @@ import torch
 
 from ..ops import ext as xe
 from ..ops import field as xf
+from ..ops import quotient as oq
 from ..ops.field import I32, I64
 from ..parallel import collectives as co
 from ..parallel.mesh import RowSharded
@@ -32,6 +37,11 @@ from .chip import Chip
 from .domains import Domain, selectors_on_coset
 from .pcs import _lde_spans
 from .permutation import eval_permutation_constraints, host_beta_pows
+
+# Calls of the plain version (quotient_rows_plain) in this process: a
+# prove on the card makes none.
+PLAIN_CALLS = 0
+
 
 def constraint_ext_flags(chip: Chip) -> List[bool]:
     """Per-constraint ext(True)/base(False) flags, in emission order (AIR,
@@ -95,61 +105,64 @@ def quotient_values(
     chips without a preprocessed trace; perm_lde None evaluates the AIR
     alone, the uni-STARK case).  perm_challenges (alpha', beta), alpha and
     cumulative_sum are exact host EF4 tuples.  Row-sharded LDEs give
-    row-sharded values (`_quotient_sharded`)."""
-    if isinstance(main_lde[0], RowSharded):
-        return _quotient_sharded(chip, trace_domain, quotient_domain, prep_lde, main_lde, perm_lde,
-                                 perm_challenges, alpha, cumulative_sum)
-    device = main_lde[0].device
+    row-sharded values: each shard evaluates its own coset rows.  Each
+    device or shard is one `quotient_eval` (ops/quotient.py) on its blocks
+    in place."""
     nq = quotient_domain.size
     next_step = 1 << (quotient_domain.log_n - trace_domain.log_n)
-    sels = selectors_on_coset(
-        trace_domain.log_n, quotient_domain.log_n, quotient_domain.shift, device
-    )
-
-    def columns(blocks):
-        # (w_b, Nq) per block: one contiguous row per column; the next row
-        # is the coset column rolled by the blowup
-        if blocks is None:
-            return None
-        cols = [b.t().contiguous() for b in blocks]
-        return cols, [torch.roll(c, -next_step, dims=1) for c in cols]
-
-    return _quotient_rows(chip, columns(prep_lde), columns(main_lde), columns(perm_lde), sels, nq,
-                          device, perm_challenges, alpha, cumulative_sum)
-
-
-def _quotient_sharded(chip, trace_domain, quotient_domain, prep_lde, main_lde, perm_lde,
-                      perm_challenges, alpha, cumulative_sum) -> RowSharded:
-    """quotient_values over row-sharded LDEs: each shard evaluates its own
-    coset rows; its next rows are its rows shifted by the blowup plus a halo
-    of the right-hand neighbour's first rows (ppermute on the ring; the last
-    shard takes shard 0's), and its selectors are those of its row range."""
+    args = (perm_challenges, alpha, cumulative_sum)
+    if not isinstance(main_lde[0], RowSharded):
+        sels = selectors_on_coset(trace_domain.log_n, quotient_domain.log_n, quotient_domain.shift,
+                                  main_lde[0].device)
+        return oq.quotient_eval(chip, main_lde, prep_lde, perm_lde, sels, next_step, *args)
+    # Row-sharded: a shard's next rows past its last are a halo of the
+    # right-hand neighbour's first rows (ppermute on the ring; the last
+    # shard takes shard 0's), and its selectors are those of its row range.
     mesh = main_lde[0].mesh
-    nq = quotient_domain.size
     rows = nq // mesh.size
-    next_step = 1 << (quotient_domain.log_n - trace_domain.log_n)
     if rows < next_step:
         raise ValueError(f"quotient: {rows} coset rows a shard, fewer than the next-row step")
 
-    def columns(blocks):
+    def shard_blocks(blocks):
         if blocks is None:
-            return [None] * mesh.size
-        per_shard = [([], []) for _ in range(mesh.size)]
-        for blk in blocks:
-            halos = co.ppermute(mesh, [b[:next_step] for b in blk.blocks], co.ring_next(mesh))
-            for k, b in enumerate(blk.blocks):
-                per_shard[k][0].append(b.t().contiguous())
-                per_shard[k][1].append(torch.cat([b[next_step:], halos[k]]).t().contiguous())
-        return per_shard
+            return [None] * mesh.size, [None] * mesh.size
+        local = [[blk.blocks[k] for blk in blocks] for k in range(mesh.size)]
+        halos = [co.ppermute(mesh, [b[:next_step] for b in blk.blocks], co.ring_next(mesh))
+                 for blk in blocks]
+        return local, [[h[k] for h in halos] for k in range(mesh.size)]
 
-    prep, main, perm = columns(prep_lde), columns(main_lde), columns(perm_lde)
+    (main, main_h), (prep, prep_h), (perm, perm_h) = (
+        shard_blocks(main_lde), shard_blocks(prep_lde), shard_blocks(perm_lde))
     out = []
     for k, dev in enumerate(mesh.devices):
         sels = selectors_on_coset(trace_domain.log_n, quotient_domain.log_n, quotient_domain.shift,
                                   dev, k * rows, rows)
-        out.append(_quotient_rows(chip, prep[k], main[k], perm[k], sels, rows, dev,
-                                  perm_challenges, alpha, cumulative_sum))
+        out.append(oq.quotient_eval(chip, main[k], prep[k], perm[k], sels, next_step, *args,
+                                    halo=(main_h[k], prep_h[k], perm_h[k])))
     return RowSharded(mesh, out, (nq, 4))
+
+
+def quotient_rows_plain(chip, main, prep, perm, sels, next_step, perm_challenges, alpha,
+                        cumulative_sum, halo=None) -> torch.Tensor:
+    """The plain version of ops/quotient.py `quotient_eval` (same
+    arguments): every block transposed into one contiguous row a column,
+    its next rows rolled by the step (halo None) or shifted with the halo
+    appended (a mesh shard), then `_quotient_rows`."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    nq = int(main[0].shape[0])
+
+    def columns(blocks, halos):
+        if blocks is None:
+            return None
+        cols = [b.t().contiguous() for b in blocks]
+        if halos is None:
+            return cols, [torch.roll(c, -next_step, dims=1) for c in cols]
+        return cols, [torch.cat([b[next_step:], h]).t().contiguous() for b, h in zip(blocks, halos)]
+
+    mh, ph, qh = halo if halo is not None else (None, None, None)
+    return _quotient_rows(chip, columns(prep, ph), columns(main, mh), columns(perm, qh), sels, nq,
+                          main[0].device, perm_challenges, alpha, cumulative_sum)
 
 
 def _quotient_rows(chip, prep_cols, main_cols, perm_cols, sels, nq, device, perm_challenges,
