@@ -22,10 +22,13 @@ result line:
    at a shard's rows, and at a unit of more members than one launch takes.
    The quotient (one kernel a chip, generated from the chip's constraints)
    is held for all 8 chips at the main path's coset heights on a whole LDE,
-   in 8-column blocks and at a mesh shard's rows with a halo, and for the
-   Cpu chip without LogUp (the uni-STARK's);
-   each chip's launch is timed, and ptxas's registers and spills of each
-   generated kernel are printed from the build.
+   in 8-column blocks and at a mesh shard's rows with a halo, at the edges
+   of its tiles of rows (QUOTIENT_TILE_CASES), and for the Cpu chip without
+   LogUp (the uni-STARK's); each chip's kernel is timed alone (its
+   launches queued behind a sleep) and with the wrapper's host work, beside
+   the bound of what the function needs and the bound counting conversions
+   at load, with its registers and blocks an SM; ptxas's registers and
+   spills of each generated kernel are printed from the build.
 4. golden: the card-path uni-STARK proof of the golden guest at 84 queries
    must equal tests/golden/uni_cpu_<guest>_q84.json (made by the JAX
    package) byte for byte.
@@ -260,7 +263,6 @@ def launch_bounds():
     from zkvm_brainfuck_tpu_torch.ops import openings as op
     from zkvm_brainfuck_tpu_torch.ops import poseidon2 as p2
     from zkvm_brainfuck_tpu_torch.ops import quotient as oq
-    from zkvm_brainfuck_tpu_torch.stark import codegen
 
     def block_stages(x, log_n, k, inverse=False, factors=None):
         m, w = x.shape
@@ -325,15 +327,12 @@ def launch_bounds():
                  halo=None):
         """Each column the chip's program reads (its halo rows too), the
         selectors it reads and the inverse zeroifier read once, the (rows,
-        4) result written; the products and additions of the generated
-        program a row (stark/codegen.py counts: the constraints, their
-        fold, the conversions into Montgomery form at load and the product
-        by the inverse zeroifier)."""
-        c = codegen.program(chip, perm is not None).counts
-        rows = int(main[0].shape[0])
-        read = c["columns"] * (rows + (next_step if halo is not None else 0))
-        return bound(4 * read + 4 * rows * (c["selectors"] + 1) + 16 * rows,
-                     rows * (c["products"] * MUL_INSTR + c["additions"] * ADD_INSTR))
+        4) result written; the products and additions that the function
+        needs a row (stark/codegen.py counts: the constraints, their fold
+        and the product by the inverse zeroifier; no conversion into
+        Montgomery form, which is a choice of the kernel's)."""
+        return quotient_bound_converting(chip, main, prep, perm, sels, next_step, halo=halo,
+                                         conversions=False)
 
     return {
         "ntt_block_stages": (nt, "ntt_block_stages", block_stages),
@@ -346,6 +345,24 @@ def launch_bounds():
         "ro_accum": (op, "ro_accum", ro_accum),
         "quotient_eval": (oq, "quotient_eval", quotient),
     }
+
+
+def quotient_bound_converting(chip, main, prep, perm, sels, next_step, *_args, halo=None,
+                              conversions=True, **_kwargs):
+    """The bound of a quotient_eval launch: each column, selector and the
+    inverse zeroifier read once, the result written once, and the
+    products and additions of the generated program, with (`conversions`)
+    the conversions into Montgomery form of each distinct (column, row)
+    value and selector read, as the row-wise kernel converted them at
+    load, or without them: what the function needs (launch_bounds)."""
+    from zkvm_brainfuck_tpu_torch.stark import codegen
+
+    c = codegen.program(chip, perm is not None).counts
+    rows = int(main[0].shape[0])
+    read = c["columns"] * (rows + (next_step if halo is not None else 0))
+    products = c["products"] + (c["loads"] + c["selectors"] if conversions else 0)
+    return bound(4 * read + 4 * rows * (c["selectors"] + 1) + 16 * rows,
+                 rows * (products * MUL_INSTR + c["additions"] * ADD_INSTR))
 
 
 def scan_bound(n):
@@ -711,18 +728,62 @@ def opening_kernels(torch, rand, compare, kernels, bounds):
         f"at {len(cases)} units ({', '.join(c[0] for c in cases)}; ro_accum writing and adding)")
 
 
+# Tile-edge cases of the quotient kernel (csrc/quotient.cuh stages tiles of
+# zkbfq::TILE = 128 rows), as in tests/test_torch_quotient.py: name ->
+# (trace log_n, blowup log, row0, rows or None for the whole LDE, block
+# width, or (f, w) for a first block of f columns then blocks of w, or None
+# for one block a group; blocks as views of one tensor).
+QUOTIENT_TILE_CASES = {
+    "whole 2^10, the wrap at the last tile": (9, 1, 0, None, None, False),
+    "300 rows at row0 38 (unaligned 16-byte runs, a short last tile)": (9, 1, 38, 300, None, True),
+    "100 rows, fewer than a tile, 4-column blocks after a 2-column one (EF4 planes straddle)":
+        (9, 1, 400, 100, (2, 4), False),
+    "a shard of 4, 8-column blocks after a 2-column one (EF4 planes straddle)":
+        (9, 1, 256, 256, (2, 8), False),
+    "6-column views (row stride > width, EF4 planes straddle)": (9, 1, 0, None, 6, True),
+    "next_step 4, 8-column blocks": (8, 2, 0, None, 8, False),
+}
+
+
+def queued_ms(torch, fn, n: int = 20, reps: int = 3) -> float:
+    """Median device ms of one of n back-to-back calls of `fn`, queued
+    behind a torch.cuda._sleep so that the host's work for each call (a
+    ctypes launch) stays off the device timeline: the kernel alone."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(4_000_000)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
 def quotient_kernels(torch, dev, rand, compare, kernels, bounds):
     """quotient_eval against quotient_rows_plain, bit for bit, on random
     LDE columns and challenges (a numpy seed): every chip at its main-path
     coset height (QUOTIENT_LOG) on a whole LDE whose next rows wrap, in
-    8-column blocks (the low-memory 2^22 layout: EF4 planes straddle
-    blocks) and at the rows of a shard of 4 (row0 = Nq/4) in 8-column
-    blocks with the next shard's first rows as its halo; the Cpu chip
-    without LogUp (the uni-STARK's kernel).  Each chip's whole-LDE launch
-    is timed; the entry is the Cpu chip's."""
+    8-column blocks (the low-memory 2^22 layout) and at the rows of a shard
+    of 4 (row0 = Nq/4) in 8-column blocks with the next shard's first rows
+    as its halo, then at the tile edges (QUOTIENT_TILE_CASES); the Cpu chip
+    without LogUp (the uni-STARK's kernel).  For each chip at its height:
+    the kernel alone (a prepared launch, queued_ms), the whole wrapper
+    (cuda_ms: its host work too), the bound of what the function needs and
+    the bound counting the conversions at load too, the registers,
+    the tile's bytes and the blocks an SM holds.  The entry is the Cpu
+    chip's."""
+    import ctypes
+
     import numpy as np
 
     from zkvm_brainfuck_tpu_torch.models.machine_def import brainfuck_chips
+    from zkvm_brainfuck_tpu_torch.ops import kernels as kn
     from zkvm_brainfuck_tpu_torch.ops import quotient as oq
     from zkvm_brainfuck_tpu_torch.ops.field import P
     from zkvm_brainfuck_tpu_torch.stark import codegen
@@ -735,10 +796,28 @@ def quotient_kernels(torch, dev, rand, compare, kernels, bounds):
     def ef():
         return tuple(int(x) for x in rng.integers(0, P, 4))
 
-    def blocked(m, rows=slice(None)):
+    def blocked(m, rows=slice(None), width=8, views=False):
         if m is None:
             return None
-        return [m[rows, c:c + 8].contiguous() for c in range(0, m.shape[1], 8)]
+        if width is None:
+            return [m[rows]]
+        first, w = (0, width) if isinstance(width, int) else width
+        edges = [0] + list(range(first or w, m.shape[1], w)) + [m.shape[1]]
+        return [m[rows, a:b] if views else m[rows, a:b].contiguous()
+                for a, b in zip(edges, edges[1:])]
+
+    def info(launch):
+        regs, smem, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        kn.check(launch.lib.zkbf_quotient_info(2, ctypes.addressof(regs), ctypes.addressof(smem),
+                                               ctypes.addressof(per_sm)), "zkbf_quotient_info")
+        return regs.value, smem.value, per_sm.value
+
+    def inputs(chip, nq):
+        main = rand(nq, chip.width)
+        prep = rand(nq, chip.preprocessed_width) if chip.preprocessed_width else None
+        perm = rand(nq, 4 * chip.permutation_width)
+        return main, prep, perm, dict(perm_challenges=(ef(), ef()), alpha=ef(),
+                                      cumulative_sum=ef())
 
     err, per_chip = 0, {}
     for air in brainfuck_chips():
@@ -748,17 +827,22 @@ def quotient_kernels(torch, dev, rand, compare, kernels, bounds):
         td = Domain(log_q - 1, 1)
         qd = td.create_disjoint_domain(nq)
         sels = selectors_on_coset(td.log_n, qd.log_n, qd.shift, dev)
-        main = rand(nq, chip.width)
-        prep = rand(nq, chip.preprocessed_width) if chip.preprocessed_width else None
-        perm = rand(nq, 4 * chip.permutation_width)
-        ch = dict(perm_challenges=(ef(), ef()), alpha=ef(), cumulative_sum=ef())
+        main, prep, perm, ch = inputs(chip, nq)
         args = ([main], None if prep is None else [prep], [perm], sels, 2)
         want = tquot.quotient_rows_plain(chip, *args, **ch)
         err = max(err, compare(f"quotient_eval {chip.name}", oq.quotient_eval(chip, *args, **ch),
                                want))
-        ms = cuda_ms(torch, lambda: oq.quotient_eval(chip, *args, **ch))
-        per_chip[chip.name] = {"coset_rows": nq, "ms": ms, "counts": codegen.program(chip).counts,
-                               "bound": bounds["quotient_eval"](chip, *args, **ch)}
+        launch = oq.Launch(chip, *args, **ch)
+        alone = queued_ms(torch, launch)
+        err = max(err, compare(f"quotient_eval {chip.name} (prepared launch)", launch.out, want))
+        regs, smem, per_sm = info(launch)
+        per_chip[chip.name] = {
+            "coset_rows": nq, "ms": alone,
+            "wrapper_ms": cuda_ms(torch, lambda: oq.quotient_eval(chip, *args, **ch)),
+            "counts": codegen.program(chip).counts,
+            "bound": bounds["quotient_eval"](chip, *args, **ch),
+            "bound_converting": quotient_bound_converting(chip, *args, **ch),
+            "registers": regs, "tile_bytes": smem, "blocks_per_sm": per_sm}
         got = oq.quotient_eval(chip, blocked(main), blocked(prep), blocked(perm), sels, 2, **ch)
         err = max(err, compare(f"quotient_eval {chip.name} 8-column blocks", got, want))
         rows = row0 = nq // 4
@@ -768,6 +852,26 @@ def quotient_kernels(torch, dev, rand, compare, kernels, bounds):
                                ssels, 2, **ch, halo=(blocked(main, nxt), blocked(prep, nxt),
                                                      blocked(perm, nxt)))
         err = max(err, compare(f"quotient_eval {chip.name} shard", got, want[sub]))
+        for case, (log_n, log_b, row0, rows, width, views) in QUOTIENT_TILE_CASES.items():
+            etd = Domain(log_n, 1)
+            eqd = etd.create_disjoint_domain(1 << (log_n + log_b))
+            step = 1 << log_b
+            esels = selectors_on_coset(etd.log_n, eqd.log_n, eqd.shift, dev)
+            emain, eprep, eperm, ech = inputs(chip, eqd.size)
+            ewant = tquot.quotient_rows_plain(chip, [emain], None if eprep is None else [eprep],
+                                              [eperm], esels, step, **ech)
+            mats = (emain, eprep, eperm)
+            if rows is None:
+                got = oq.quotient_eval(chip, *[blocked(m, width=width, views=views) for m in mats],
+                                       esels, step, **ech)
+            else:
+                sub, nxt = slice(row0, row0 + rows), slice(row0 + rows, row0 + rows + step)
+                ewant = ewant[sub]
+                got = oq.quotient_eval(
+                    chip, *[blocked(m, sub, width, views) for m in mats],
+                    selectors_on_coset(etd.log_n, eqd.log_n, eqd.shift, dev, row0, rows), step,
+                    **ech, halo=tuple(blocked(m, nxt, width, views) for m in mats))
+            err = max(err, compare(f"quotient_eval {chip.name} {case}", got, ewant))
         if chip.name == "Cpu":
             timed = (chip, args, ch)
     chip, args, ch = timed
@@ -784,12 +888,18 @@ def quotient_kernels(torch, dev, rand, compare, kernels, bounds):
         shape=f"Cpu: 2^{nq.bit_length() - 1} coset rows x ({chip.width} + "
               f"{4 * chip.permutation_width}) columns -> ({nq}, 4)")
     for name, v in per_chip.items():
+        b, bc = v["bound"][0], v["bound_converting"][0]
         say(f"[kernels] quotient_eval {name:12s} at {v['coset_rows']:8d} coset rows: bit-exact; "
-            f"{v['ms']:.4f} ms, bound {v['bound'][0]:.4f} ms ({v['bound'][1]}); a row: "
-            f"{v['counts']['products']} products, {v['counts']['additions']} additions, "
-            f"{v['counts']['columns']} columns")
+            f"kernel alone {v['ms']:.4f} ms ({100 * b / v['ms']:.1f} % of its bound), wrapper "
+            f"{v['wrapper_ms']:.4f} ms; bound {b:.4f} ms ({v['bound'][1]}; counting the "
+            f"conversions at load {bc:.4f} ms); {v['registers']} registers, "
+            f"{v['tile_bytes']} tile bytes, {v['blocks_per_sm']} blocks an SM; a row: "
+            f"{v['counts']['products']} products, "
+            f"{v['counts']['additions']} additions, {v['counts']['columns']} columns "
+            f"({v['counts']['reads']} tile reads)")
     say(f"[kernels] quotient_eval bit-exact for all {len(per_chip)} chips on a whole LDE, in "
-        f"8-column blocks and at a shard's rows with a halo, and for Cpu without LogUp")
+        f"8-column blocks, at a shard's rows with a halo and at the tile edges "
+        f"({'; '.join(QUOTIENT_TILE_CASES)}), and for Cpu without LogUp")
 
 
 def quotient_ptxas(report):

@@ -7,9 +7,16 @@ kernels stark/codegen.py generates over csrc/quotient.cuh) on the CPU.
   chip (preprocessed) and the Cpu chip without LogUp (the uni-STARK).
 - Each chip's generated body, compiled with g++ with its host loop
   (`zkbf_quotient_host`, the part of csrc/quotient.cuh built without
-  __CUDACC__), equals the plain version bit for bit for all 8 chips: on a
-  whole LDE whose next rows wrap, and on a mesh shard (row0 > 0) in
-  4-column blocks, its next rows past its last taken from a halo.
+  __CUDACC__: each tile staged by the kernel's own staging code into a
+  host array of the kernel's pitch), equals the plain version bit for bit
+  for all 8 chips: on a whole LDE whose next rows wrap, and on a mesh
+  shard (row0 > 0) in 4-column blocks, its next rows past its last taken
+  from a halo; and at the tile edges (TILE_CASES: several tiles and the
+  wrap at the last, a last tile of fewer rows, a shard smaller than a
+  tile, runs off a 16-byte boundary, column views with a larger row
+  stride and EF4 planes straddling two blocks, a next_step of 4).
+- The parameter words (the beta powers and fold weights by
+  `ef_host.powers`) equal those of an EF4 product loop.
 - The recorded constraints' flags are the chip's `constraint_ext_flags`,
   and recording a chip twice gives the same text and hash.
 - On CPU tensors the wrapper runs the plain version and counts no launch.
@@ -74,13 +81,19 @@ def _inputs(chip, seed, log_n=LOG_N, perm=True):
     return mats, chal
 
 
-def _blocks(m, width):
-    """Column blocks of `width` columns (the last narrower), or one block."""
+def _blocks(m, width, views=False):
+    """Column blocks of `width` columns (the last narrower; a pair (f, w):
+    a first block of f columns, then blocks of w), or one block for None:
+    contiguous copies, or (`views`) views of one contiguous tensor."""
     if m is None:
         return None
+    t = _t(m)
     if width is None:
-        return [_t(m)]
-    return [_t(m[:, c:c + width]).contiguous() for c in range(0, m.shape[1], width)]
+        return [t]
+    first, w = (0, width) if isinstance(width, int) else width
+    n = t.shape[1]
+    edges = [0] + list(range(first or w, n, w)) + [n]
+    return [t[:, a:b] if views else t[:, a:b].contiguous() for a, b in zip(edges, edges[1:])]
 
 
 def _domains(log_n):
@@ -156,24 +169,25 @@ def _host_lib(prog):
         os.replace(tmp, lib)
     handle = ctypes.CDLL(lib)
     vp, i = ctypes.c_void_p, ctypes.c_int
-    handle.zkbf_quotient_host.argtypes = [vp, vp, vp, vp, i, vp, vp, i, i, i, vp]
+    handle.zkbf_quotient_host.argtypes = [vp, vp, vp, vp, vp, i, vp, vp, i, i, i, vp]
     return handle
 
 
 def _host_eval(chip, main, prep, perm, sels, step, ch, halo=None):
-    """The generated body through the wrapper's column table, on the CPU."""
+    """The generated body through the wrapper's block table, on the CPU:
+    each tile staged into a host array of the kernel's pitch by the
+    kernel's staging code, then its rows through the body."""
     prog = codegen.program(chip, perm is not None)
-    local, hal, strides, hstrides, n = oq.column_table(chip, main, prep, perm, halo)
+    local, hal, strides, hstrides, widths, n = oq.block_table(chip, main, prep, perm, halo)
     words = prog.params(ch["perm_challenges"], ch["alpha"], ch["cumulative_sum"])
     rows = int(main[0].shape[0])
     out = torch.zeros((rows, 4), dtype=torch.int32)
     sel = [sels[s].contiguous() for s in oq.SELECTORS]
     sel_ptrs = (ctypes.c_void_p * 4)(*[s.data_ptr() for s in sel])
-    prm = (ctypes.c_uint * len(words))(*words)
     err = _host_lib(prog).zkbf_quotient_host(
         ctypes.addressof(local), ctypes.addressof(hal), ctypes.addressof(strides),
-        ctypes.addressof(hstrides), n, ctypes.addressof(sel_ptrs), ctypes.addressof(prm),
-        len(words), rows, step, out.data_ptr())
+        ctypes.addressof(hstrides), ctypes.addressof(widths), n, ctypes.addressof(sel_ptrs),
+        words.ctypes.data, len(words), rows, step, out.data_ptr())
     assert err == 0
     return out
 
@@ -205,6 +219,86 @@ def test_generated_body_equals_plain(name):
     sp = tquot.quotient_rows_plain(chip, *shard, ssels, step, ch["perm_challenges"], ch["alpha"],
                                    ch["cumulative_sum"], halo)
     np.testing.assert_array_equal(sp.numpy(), plain[row0:row0 + rows].numpy())
+
+
+TILE = 128  # csrc/quotient.cuh zkbfq::TILE: rows a block stages
+# name: (trace log_n, blowup log, row0, rows or None for the whole LDE, block widths as
+# _blocks takes them, views)
+TILE_CASES = {
+    # 2^9 coset rows, 4 tiles: the last tile's next rows wrap to rows 0 and 1
+    "whole, the wrap at the last tile": (8, 1, 0, None, None, False),
+    # 300 rows (2 tiles and 44), row views of each whole group: contiguous
+    # runs that start 2 words past a 16-byte boundary; halo rows 338, 339
+    "shard of 300 rows, row0 38": (8, 1, 38, 300, None, True),
+    # fewer rows than a tile; 4-column blocks after a 2-column one, so
+    # that EF4 planes straddle two blocks
+    "shard of 100 rows, 4-column blocks, planes straddle": (8, 1, 400, 100, (2, 4), False),
+    # a shard of 4 (row0 = Nq/4) at 2 tiles, 8-column blocks after a
+    # 2-column one (planes straddle)
+    "shard of 4, 8-column blocks, planes straddle": (8, 1, 128, 128, (2, 8), False),
+    # column views of the whole matrix (row stride > width); 6 columns a
+    # block, so EF4 planes straddle two blocks
+    "6-column views, EF4 planes straddle": (8, 1, 0, None, 6, True),
+    # next_step 4 (a 4x coset): the tile holds 4 rows past its last
+    "next_step 4, 8-column blocks": (7, 2, 0, None, 8, False),
+}
+
+
+@pytest.mark.parametrize("name", CHIP_NAMES)
+@pytest.mark.parametrize("case", list(TILE_CASES))
+def test_tiled_body_equals_plain(case, name):
+    """The generated body with the kernel's tile staging (16-byte runs,
+    their unaligned heads and tails, views word by word, halo rows, a last
+    tile of fewer rows) against the plain version, bit for bit."""
+    log_n, log_blowup, row0, rows, width, views = TILE_CASES[case]
+    chip = _chip(name)
+    mats, ch = _inputs(chip, seed=70 + CHIP_NAMES.index(name), log_n=log_n + log_blowup - 1)
+    td = Domain(log_n, 1)
+    qd = td.create_disjoint_domain(1 << (log_n + log_blowup))
+    nq, step = qd.size, 1 << log_blowup
+    sels = selectors_on_coset(td.log_n, qd.log_n, qd.shift, "cpu")
+    whole = [_blocks(mats[k], None) for k in ("main", "prep", "perm")]
+    plain = tquot.quotient_rows_plain(chip, *whole, sels, step, ch["perm_challenges"],
+                                      ch["alpha"], ch["cumulative_sum"])
+    groups = [_blocks(mats[k], width, views) for k in ("main", "prep", "perm")]
+    if rows is None:
+        got = _host_eval(chip, *groups, sels, step, ch)
+        want = plain
+    else:
+        sub, nxt = slice(row0, row0 + rows), slice(row0 + rows, row0 + rows + step)
+        shard = [None if g is None else [b[sub] for b in g] for g in groups]
+        halo = tuple(None if g is None else [b[nxt] for b in g] for g in groups)
+        ssels = selectors_on_coset(td.log_n, qd.log_n, qd.shift, "cpu", row0, rows)
+        got = _host_eval(chip, *shard, ssels, step, ch, halo)
+        want = plain[sub]
+    assert nq > TILE
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("name", CHIP_NAMES)
+def test_params_equal_the_ef4_loop(name):
+    """Program.params (the beta powers and fold weights by ef_host.powers)
+    equals the words of an EF4 product loop exactly."""
+    from zkvm_brainfuck_tpu_torch.stark import ef_host as efh
+
+    chip = _chip(name)
+    rng = np.random.default_rng(90 + CHIP_NAMES.index(name))
+    alpha, beta, alpha2, cs = _ef(rng), _ef(rng), _ef(rng), _ef(rng)
+    for perm in (True, False):
+        prog = codegen.program(chip, perm)
+        want = []
+        if perm:
+            want += list(alpha2) + list(beta)
+            pw = [efh.ONE]
+            for _ in range(prog.max_vals):
+                pw.append(efh.mul(pw[-1], beta))
+            want += [x for p in pw for x in p] + list(cs)
+        pw = [efh.ONE]
+        for _ in range(prog.k - 1):
+            pw.append(efh.mul(pw[-1], alpha))
+        want += [x for j in range(prog.k) for x in pw[prog.k - 1 - j]]
+        got = prog.params((alpha2, beta) if perm else None, alpha, cs if perm else None)
+        assert got.dtype == np.uint32 and got.tolist() == want
 
 
 def test_generated_body_without_logup_equals_plain():

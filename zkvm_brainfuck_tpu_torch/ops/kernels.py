@@ -78,9 +78,11 @@ _ARGTYPES = {
     # every generated quotient library
     "quotient": {
         "zkbf_set_device": [_I],
-        # (local ptrs, halo ptrs, strides, halo strides, n_cols, sel ptrs, prm, n_prm, rows,
-        #  step, out, stream)
-        "zkbf_quotient": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P],
+        # (block local ptrs, halo ptrs, strides, halo strides, widths, n_blk, sel ptrs, prm,
+        #  n_prm, rows, step, out, stream)
+        "zkbf_quotient": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P],
+        # (step, registers, tile bytes, blocks an SM): out through the pointers
+        "zkbf_quotient_info": [_I, _P, _P, _P],
     },
 }
 

@@ -20,11 +20,12 @@ quotient at `rows` coset rows:
   values.
 
 For CUDA tensors the wrapper launches the chip's kernel once, reading the
-blocks in place through a table of column pointers and strides; a kernel
-that fails to build or launch raises.  Only CPU tensors take the plain
-version (stark/quotient.py `quotient_rows_plain`: every constraint in eager
-torch over transposed and rolled copies of the columns).  Every operation
-is exact mod p, so both give the same bits.
+blocks in place through a table of blocks (pointer, row stride, width;
+the kernel stages each tile of rows into shared memory); a kernel that
+fails to build or launch raises.  Only CPU tensors take the plain version
+(stark/quotient.py `quotient_rows_plain`: every constraint in eager torch
+over transposed and rolled copies of the columns).  Every operation is
+exact mod p, so both give the same bits.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ def _groups(chip, main, prep, perm) -> List[tuple]:
     return groups
 
 
-def _check(chip, main, prep, perm, sels, next_step: int, halo) -> int:
+def _check(chip, main, prep, perm, sels, next_step: int, halo) -> None:
     if not main:
         raise ValueError("quotient_eval: no main blocks")
     rows = int(main[0].shape[0])
@@ -82,7 +83,6 @@ def _check(chip, main, prep, perm, sels, next_step: int, halo) -> int:
     for s in SELECTORS:
         if tuple(sels[s].shape) != (rows,) or sels[s].device != device:
             raise ValueError(f"quotient_eval: selector {s} must be ({rows},) on {device}")
-    return rows
 
 
 def quotient_eval(chip, main: Sequence[torch.Tensor], prep: Optional[Sequence[torch.Tensor]],
@@ -91,53 +91,71 @@ def quotient_eval(chip, main: Sequence[torch.Tensor], prep: Optional[Sequence[to
     """(rows, 4) canonical int32: the chip's folded constraints times the
     inverse zeroifier at each row.  On the card one launch of the chip's
     generated kernel."""
-    rows = _check(chip, main, prep, perm, sels, next_step, halo)
+    _check(chip, main, prep, perm, sels, next_step, halo)
     if not main[0].is_cuda:
         from ..stark.quotient import quotient_rows_plain
 
         return quotient_rows_plain(chip, main, prep, perm, sels, next_step, perm_challenges, alpha,
                                    cumulative_sum, halo)
-    from ..stark import codegen
-
-    prog = codegen.program(chip, perm is not None)
-    device = main[0].device
-    table = column_table(chip, main, prep, perm, halo)
-    for s in SELECTORS:
-        _require(sels[s], f"quotient_eval selector {s}", 1)
-    words = prog.params(perm_challenges, alpha, cumulative_sum)
-    out = torch.empty((rows, 4), dtype=I32, device=device)
-    lib = kn.generated_lib(prog.name, prog.text, device)
-    sel_ptrs = (ctypes.c_void_p * 4)(*[sels[s].data_ptr() for s in SELECTORS])
-    prm = (ctypes.c_uint * len(words))(*words)
-    local, hal, strides, hstrides, n_cols = table
-    kn.check(lib.zkbf_quotient(ctypes.addressof(local), ctypes.addressof(hal),
-                               ctypes.addressof(strides), ctypes.addressof(hstrides), n_cols,
-                               ctypes.addressof(sel_ptrs), ctypes.addressof(prm),
-                               len(words), rows, next_step, out.data_ptr(), kn.stream(device)),
-             f"quotient_eval {prog.name}")
+    launch = Launch(chip, main, prep, perm, sels, next_step, perm_challenges, alpha,
+                    cumulative_sum, halo)
+    launch()
     kn.COUNTS["quotient_eval"] += 1
-    return out
+    return launch.out
 
 
-def column_table(chip, main, prep, perm, halo=None) -> tuple:
-    """The kernel's column table as C arrays (local pointers, halo pointers,
-    row strides, halo row strides, the column count), in the column order of
-    stark/codegen.py: main, preprocessed, permutation planes.  Without a
-    halo a column's halo is the column itself (the coset wraps)."""
-    local, hal, strides, hstrides = [], [], [], []
+class Launch:
+    """A launch of the chip's kernel with its arguments built: the loaded
+    library, the block table, the selector pointers and the parameter
+    words as C arrays, and the result tensor.  Calling it launches the
+    kernel on the current stream (and raises on a CUDA error); the wrapper
+    calls it once, a timing may call it again."""
+
+    def __init__(self, chip, main, prep, perm, sels, next_step, perm_challenges, alpha,
+                 cumulative_sum, halo=None):
+        from ..stark import codegen
+
+        prog = codegen.program(chip, perm is not None)
+        device = main[0].device
+        self.name = prog.name
+        self.table = block_table(chip, main, prep, perm, halo)
+        for s in SELECTORS:
+            _require(sels[s], f"quotient_eval selector {s}", 1)
+        self.sel_ptrs = (ctypes.c_void_p * 4)(*[sels[s].data_ptr() for s in SELECTORS])
+        self.words = prog.params(perm_challenges, alpha, cumulative_sum)
+        rows = int(main[0].shape[0])
+        self.out = torch.empty((rows, 4), dtype=I32, device=device)
+        self.lib = kn.generated_lib(prog.name, prog.text, device)
+        local, hal, strides, hstrides, widths, n_blk = self.table
+        self.args = (ctypes.addressof(local), ctypes.addressof(hal), ctypes.addressof(strides),
+                     ctypes.addressof(hstrides), ctypes.addressof(widths), n_blk,
+                     ctypes.addressof(self.sel_ptrs), self.words.ctypes.data, len(self.words),
+                     rows, next_step, self.out.data_ptr(), kn.stream(device))
+
+    def __call__(self) -> None:
+        kn.check(self.lib.zkbf_quotient(*self.args), f"quotient_eval {self.name}")
+
+
+def block_table(chip, main, prep, perm, halo=None) -> tuple:
+    """The kernel's block table as C arrays (local pointers, halo pointers,
+    row strides, halo row strides, widths, the block count), in the column
+    order of stark/codegen.py: main, preprocessed, permutation planes.
+    Without a halo a block's halo is the block itself (the coset wraps)."""
+    local, hal, strides, hstrides, widths = [], [], [], [], []
     for name, blocks, _w in _groups(chip, main, prep, perm):
         hblocks = blocks if halo is None else halo[("main", "prep", "perm").index(name)]
         for b, hb in zip(blocks, hblocks):
             for t, what in ((b, f"quotient_eval {name} block"), (hb, f"quotient_eval {name} halo")):
                 _require(t, what, 2)
-            for c in range(int(b.shape[1])):
-                local.append(b.data_ptr() + 4 * c)
-                strides.append(b.stride(0))
-                hal.append(hb.data_ptr() + 4 * c)
-                hstrides.append(hb.stride(0))
+            local.append(b.data_ptr())
+            strides.append(b.stride(0))
+            hal.append(hb.data_ptr())
+            hstrides.append(hb.stride(0))
+            widths.append(int(b.shape[1]))
     n = len(local)
     return ((ctypes.c_void_p * n)(*local), (ctypes.c_void_p * n)(*hal),
-            (ctypes.c_int * n)(*strides), (ctypes.c_int * n)(*hstrides), n)
+            (ctypes.c_int * n)(*strides), (ctypes.c_int * n)(*hstrides),
+            (ctypes.c_int * n)(*widths), n)
 
 
 def _require(t: torch.Tensor, what: str, ndim: int) -> None:

@@ -21,15 +21,20 @@ columns.  What it records is a straight-line program over KoalaBear a row:
   product.
 
 `Program.source()` renders the live operations as the body of
-csrc/quotient.cuh's kernel, every value in Montgomery form: constants are
-emitted converted, an addition of a negation becomes a subtraction, a
-product by 2 or 3 additions.  build.py compiles the text into a library
-named by its hash; ops/quotient.py launches it.
+csrc/quotient.cuh's kernel, every value in Montgomery form: a column is
+read from the shared-memory tile at each use, at a compile-time offset
+from the row's (`lp`) or the next row's (`np`) base, so it holds no
+register between uses; constants are emitted converted, an addition of a
+negation becomes a subtraction, a product by 2 or 3 additions.  build.py
+compiles the text into a library named by its hash; ops/quotient.py
+launches it.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
+
+import numpy as np
 
 from ..ops.field import P
 from . import ef_host as efh
@@ -202,28 +207,30 @@ class Program:
         lines, self.counts = self._render()
         self.text = self._source(lines)
 
-    def params(self, perm_challenges, alpha, cumulative_sum) -> List[int]:
-        """The launch's canonical parameter words (the launcher converts
-        them to Montgomery form)."""
-        words: List[int] = []
+    def params(self, perm_challenges, alpha, cumulative_sum) -> np.ndarray:
+        """The launch's canonical parameter words, (n_params,) uint32 (the
+        launcher converts them to Montgomery form); the beta powers and
+        the fold weights alpha^(K-1-j) by `ef_host.powers`."""
+        parts = []
         if self.perm:
             beta = tuple(int(x) for x in perm_challenges[1])
-            words += [int(x) for x in perm_challenges[0]] + list(beta)
-            words += [int(x) for x in host_beta_pows(self.chip, beta).reshape(-1)]
-            words += [int(x) for x in cumulative_sum]
-        pows = [efh.ONE]
-        for _ in range(self.k - 1):
-            pows.append(efh.mul(pows[-1], alpha))
-        for j in range(self.k):
-            words += list(pows[self.k - 1 - j])
-        assert len(words) == self.n_params
-        return [w % P for w in words]
+            parts += [np.array([int(x) for x in perm_challenges[0]] + list(beta), np.uint64),
+                      host_beta_pows(self.chip, beta).reshape(-1).astype(np.uint64),
+                      np.array([int(x) for x in cumulative_sum], np.uint64)]
+        parts.append(efh.powers(alpha, self.k)[::-1].reshape(-1))
+        words = np.concatenate(parts) % P
+        assert words.shape == (self.n_params,)
+        return words.astype(np.uint32)
 
     # -- rendering ----------------------------------------------------------
 
     def _render(self):
         """C++ statements of the live operations, in recording order (which
-        is topological), and the counts of what a row computes."""
+        is topological), and the counts of a row: `loads` the distinct
+        (column, row) values it reads, `reads` the tile reads emitted (one
+        at each use), `products` and `additions` those of the constraints,
+        their fold and the product by the inverse zeroifier (the staging's
+        and the selectors' conversions into Montgomery form not counted)."""
         ops = self.rec.ops
         form = {}
         for i, (op, a, b) in enumerate(ops):
@@ -251,23 +258,28 @@ class Program:
             deps = (a, b) if op in ("add", "sub", "mul") else (a,) if op in ("neg", "mulc") else ()
             stack.extend(x for x in deps if ops[x][0] != "const")
 
+        counts = {"loads": 0, "reads": 0, "selectors": 0, "products": 4, "additions": 0}
+
         def ref(x):
             c = self.rec.cval(x)
-            return f"{_mont(c)}u" if c is not None else f"v{x}"
+            if c is not None:
+                return f"{_mont(c)}u"
+            op, a, b = ops[x]
+            if op == "ld":  # a shared-memory read at each use
+                counts["reads"] += 1
+                return f"{'np' if b else 'lp'}[{a}]"
+            return f"v{x}"
 
-        counts = {"loads": 0, "selectors": 0, "products": 4, "additions": 0}
         counts["columns"] = len({ops[i][1] for i in live if ops[i][0] == "ld"})
         lines = []
         for i in sorted(live):
             op, a, b = form[i]
             if op == "ld":
-                expr = f"ld(a, w, {a}, {'true' if b else 'false'})"
                 counts["loads"] += 1
-                counts["products"] += 1
-            elif op == "sel":
-                expr = f"sel(a, w, {a})"
+                continue
+            if op == "sel":
+                expr = f"sel(a, r, {a})"
                 counts["selectors"] += 1
-                counts["products"] += 1
             elif op == "prm":
                 expr = f"a.prm[{a}]"
             elif op == "wt":
@@ -310,14 +322,16 @@ class Program:
             f"{' and eval_permutation_constraints' if self.perm else ''}.",
             f"// {self.k} constraints ({n_ext} extension), {self.n_main} main, {self.n_prep} "
             f"preprocessed and {self.n_perm} permutation-plane columns,",
-            f"// {self.n_params} parameter words; a row: {c['loads']} loads, {c['selectors']} "
-            f"selectors, {c['products']} products, {c['additions']} additions.",
+            f"// {self.n_params} parameter words; a row: {c['loads']} column values "
+            f"({c['reads']} tile reads), {c['selectors']} selectors, {c['products']} products, "
+            f"{c['additions']} additions.",
             f"#define ZKBF_Q_NCOL {self.n_cols}",
             f"#define ZKBF_Q_NPRM {self.n_params}",
             '#include "quotient.cuh"',
             "",
             "namespace zkbfq {",
-            "__device__ __forceinline__ void body(const Args& a, const Row& w, uint32_t acc[4]) {",
+            "__device__ __forceinline__ void body(const Args& a, long long r, TileRow lp, TileRow np,",
+            "                                     uint32_t acc[4]) {",
         ]
         return "\n".join(head + lines + ["}", "}  // namespace zkbfq", ""])
 

@@ -5,6 +5,10 @@ elements, not arrays.  Mirrors ops/ext.py (x^4 = 3)."""
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
+
 from ..ops.field import P
 
 W = 3
@@ -168,3 +172,39 @@ def v_inv(a):
     # norm must be (n, 0, 0, 0)
     n0 = norm[..., 0]
     return v_mul_base(adj, v_base_inv(n0))
+
+
+def _mul_matrix(b) -> np.ndarray:
+    """(4, 4) uint64 M with x @ M = x * b (x^4 = 3): row i holds the
+    coefficients that x_i contributes to each of the product's four."""
+    b = [int(v) % P for v in b]
+    w = [W * v % P for v in b]
+    return np.array([[b[0], b[1], b[2], b[3]],
+                     [w[3], b[0], b[1], b[2]],
+                     [w[2], w[3], b[0], b[1]],
+                     [w[1], w[2], w[3], b[0]]], np.uint64)
+
+
+def powers(a, n: int) -> np.ndarray:
+    """(n, 4) uint64 canonical a^0 .. a^(n-1), exact (read-only).  The
+    powers of one value are computed once, to a power of two of at least
+    16, and sliced: a prove asks for the same alpha's and beta's powers
+    once a chip."""
+    a = tuple(int(v) % P for v in a)
+    return _powers(a, max(16, 1 << max(n - 1, 0).bit_length()))[:n]
+
+
+@functools.lru_cache(maxsize=16)
+def _powers(a: tuple, n: int) -> np.ndarray:
+    """By doubling: the powers found so far times a^m, one matrix product
+    a step (4 products of values below p sum below 2^64)."""
+    out = np.zeros((n, 4), np.uint64)
+    out[0, 0] = 1
+    m, am = 1, a
+    while m < n:
+        k = min(m, n - m)
+        out[m:m + k] = out[:k] @ _mul_matrix(am) % P
+        am = mul(am, am)
+        m += k
+    out.flags.writeable = False
+    return out

@@ -46,10 +46,7 @@ def host_beta_pows(chip: Chip, beta_host) -> np.ndarray:
 
     inter = _interactions(chip)
     max_vals = max(len(lk.values) for lk, _ in inter)
-    pows = [efh.ONE]
-    for _ in range(max_vals):
-        pows.append(efh.mul(pows[-1], beta_host))
-    return np.array(pows, np.uint32)
+    return efh.powers(beta_host, max_vals + 1).astype(np.uint32)
 
 
 def generate_permutation_trace(chip: Chip, prep, main, alpha_host, beta_host):
