@@ -17,9 +17,16 @@ result line:
    of its own in the kernels line with "fused_into"): it is held against
    logup_entries_plain + logup_scan_plain over the whole trace and the
    cumulative sum, and the running sum is timed beside torch.cumsum.  The
-   opening kernels (open_eval, ro_accum) are held at the main path's
-   largest opening unit, at a small unit of odd widths on a shifted domain
-   at a shard's rows, and at a unit of more members than one launch takes.
+   opening kernels (open_eval, ro_accum; their column products on the int8
+   tensor cores) are held at the main path's largest opening unit, random
+   and with every word p - 1 or p - 2, at single members of widths 1, 2, 8
+   and 9 (one of 2^24 rows, so that each block flushes its 32-bit sums),
+   at units on a shifted and on a source domain at a shard's rows, at
+   members 4 bytes past a 16-byte boundary, at a unit too wide for tiles
+   of 64 rows and at a unit of more members than one launch takes; their
+   registers, spills
+   and the IMMA instructions of their SASS (cuobjdump) are printed, and
+   there must be IMMA instructions.
    The quotient (one kernel a chip, generated from the chip's constraints)
    is held for all 8 chips at the main path's coset heights on a whole LDE,
    in 8-column blocks and at a mesh shard's rows with a halo, at the edges
@@ -128,6 +135,12 @@ EF4_INV_MULS = 8 + 2 * 16 + 4 + 48 + 6 + 4
 # the SASS.
 INT_OPS_PER_S = 64 * 132 * 1.98e9
 MUL_INSTR, ADD_INSTR = 5, 2
+# The int8 tensor cores: 1,979 dense TOP/s (NVIDIA's H100 SXM data sheet).  A
+# product of two canonical (4-byte) values is 16 byte products of 2
+# operations each (a multiply and an add), which the tensor cores sum
+# exactly in 32 bits (csrc/openings.cu).
+IMMA_OPS_PER_S = 1.979e15
+IMMA_OPS_PER_PRODUCT = 16 * 2
 # Poseidon2, width 16: the fewest field operations of one permutation.
 # - An external linear layer: 4 products by the 4x4 matrix (Plonky3's
 #   apply_mat4: 9 additions and 2 doublings each), then 4 column sums of 3
@@ -195,6 +208,31 @@ OPEN_UNIT_LOG, OPEN_UNIT_WIDTHS = SLICE_LOG + 1, (7, 31, 16, 36, 4, 4, 4, 4)
 # (twice its trace rows, PERF.md section 4).
 QUOTIENT_LOG = {"Cpu": 21, "AddSub": 21, "Jump": 20, "Program": 18, "Byte": 17,
                 "MemoryInstrs": 13, "IO": 5, "Memory": 5}
+# The opening kernels' cases (opening_kernels): name -> (log_m, domain, row0,
+# rows, member widths, every member word, or "offset" for random words in a
+# tensor that starts 4 bytes past a 16-byte boundary, or None); the
+# domain's shift is GENERATOR for "lde", 7 GENERATOR for "shifted", 1 for
+# "source" and "one".  64 and 32 rows are the kernels' tiles; a block of
+# open_eval flushes its 32-bit sums after 8,192 rows.
+OPENING_CASES = {
+    "largest unit": (OPEN_UNIT_LOG, "lde", 0, 1 << OPEN_UNIT_LOG, OPEN_UNIT_WIDTHS, None),
+    "largest unit, every word p - 1": (OPEN_UNIT_LOG, "lde", 0, 1 << OPEN_UNIT_LOG,
+                                       OPEN_UNIT_WIDTHS, "p-1"),
+    "largest unit, every word p - 2": (OPEN_UNIT_LOG, "lde", 0, 1 << OPEN_UNIT_LOG,
+                                       OPEN_UNIT_WIDTHS, "p-2"),
+    "width 1, 8,193 rows": (14, "lde", 0, 8193, (1,), None),
+    "width 2, 2^24 rows of p - 2 (blocks take over 128 tiles: a flush)": (24, "lde", 0, 1 << 24,
+                                                                          (2,), "p-2"),
+    "width 8, 1,000 rows": (10, "lde", 0, 1000, (8,), None),
+    "width 9, 1,000 rows at row0 24": (10, "lde", 24, 1000, (9,), None),
+    "odd widths, shard rows": (9, "shifted", 128, 64, (3, 5, 1), None),
+    "301 rows, members 4 bytes past a 16-byte boundary (4-byte copies)": (9, "shifted", 0, 301,
+                                                                           (3, 5, 4), "offset"),
+    "source domain, a quarter shard's rows": (SLICE_LOG, "source", 1 << 18, 1 << 18, (31, 36), None),
+    "18 members": (7, "one", 0, 128, tuple(1 + k % 3 for k in range(18)), None),
+    "16 members of 30 columns (too wide for tiles of 64 rows: tiles of 32)": (12, "one", 0, 4000,
+                                                                             (30,) * 16, None),
+}
 GOLDEN_QUERIES, GOLDEN_POW_BITS = 84, 16
 TRANSCRIPT_SEGMENTS = [("S1 setup", 0, 15), ("S2 main commit", 15, 31), ("S3 LogUp", 31, 67),
                        ("S4 quotient", 67, 79), ("S5 open", 79, 1741)]
@@ -228,9 +266,12 @@ def cuda_ms(torch, fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: float, int_ops: float):
+def bound(bytes_moved: float, int_ops: float, tensor_ops: float = 0):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the HBM rate
+    and the operations' time, integer instructions on the INT32 lanes plus
+    tensor-core operations at the int8 rate."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = int_ops / INT_OPS_PER_S * 1e3
+    t_ops = (int_ops / INT_OPS_PER_S + tensor_ops / IMMA_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -254,7 +295,9 @@ def block_pass_instr(m: int, w: int, log_n: int, k: int, scaled: bool) -> int:
 def launch_bounds():
     """{kernel: (module, wrapper name, bound of one launch from the wrapper's
     arguments)}: each input read once, each output written once, and the
-    integer instructions of the field operations these inputs need."""
+    integer instructions of the field operations these inputs need on the
+    INT32 lanes, plus, for the opening kernels, their column products at
+    the int8 tensor-core rate."""
     import torch
 
     from zkvm_brainfuck_tpu_torch.ops import logup as lu
@@ -303,25 +346,27 @@ def launch_bounds():
         return sum(m.numel() for m in mats), sum(int(m.shape[1]) for m in mats)
 
     def open_eval(mats, z, log_m, shift, row0=0):
-        """Every member read once and the (W, 4) sums written; 4 products
-        and 4 additions an element, an EF4 inverse and 4 products (x times
-        it) a row."""
+        """Every member read once and the (W, 4) sums written; an element's
+        4 column products (by the row's 4 EF4 weights) on the int8 tensor
+        cores, and on the INT32 lanes a row's EF4 inverse and the 4
+        products of x by it."""
         elems, w = unit_elems(mats)
         h = int(mats[0].shape[0])
-        return bound(4 * elems + 16 * w,
-                     elems * 4 * (MUL_INSTR + ADD_INSTR) + h * (EF4_INV_MULS + 4) * MUL_INSTR)
+        return bound(4 * elems + 16 * w, h * (EF4_INV_MULS + 4) * MUL_INSTR,
+                     elems * 4 * IMMA_OPS_PER_PRODUCT)
 
     def ro_accum(ro, mats, alpha_pows, s, z, log_m, shift, row0=0, first=False):
         """Every member and the alpha powers read once, the (h, 4) reduced
-        opening read (unless first) and written; 4 products and 4
-        additions an element, and a row's EF4 inverse, its 4 subtractions
-        of S, the EF4 product (16 products, 12 additions) and, unless
-        first, 4 additions."""
+        opening read (unless first) and written; an element's 4 column
+        products (by its column's 4 alpha powers) on the int8 tensor
+        cores, and on the INT32 lanes a row's EF4 inverse, its 4
+        subtractions of S, the EF4 product (16 products, 12 additions)
+        and, unless first, 4 additions."""
         elems, w = unit_elems(mats)
         h = int(mats[0].shape[0])
         return bound(4 * elems + 16 * w + 16 * h * (1 if first else 2),
-                     elems * 4 * (MUL_INSTR + ADD_INSTR)
-                     + h * ((EF4_INV_MULS + 16) * MUL_INSTR + (16 if first else 20) * ADD_INSTR))
+                     h * ((EF4_INV_MULS + 16) * MUL_INSTR + (16 if first else 20) * ADD_INSTR),
+                     elems * 4 * IMMA_OPS_PER_PRODUCT)
 
     def quotient(chip, main, prep, perm, sels, next_step, perm_challenges, alpha, cumulative_sum,
                  halo=None):
@@ -675,28 +720,53 @@ def logup_kernels(torch, dev, rand, compare, kernels, bounds):
 
 def opening_kernels(torch, rand, compare, kernels, bounds):
     """open_eval and ro_accum against open_eval_plain and ro_accum_plain, bit
-    for bit, on random members, alpha powers and points from a numpy seed:
-    the main path's largest unit (OPEN_UNIT_WIDTHS on the 2^21-row LDE
-    coset), a unit of odd widths on a shifted source domain at the rows of
-    a mesh shard (row0 > 0), and a unit of 18 members (two launches each).
+    for bit, on random members, alpha powers and points from a numpy seed
+    (OPENING_CASES): the main path's largest unit (OPEN_UNIT_WIDTHS on the
+    2^21-row LDE coset), the same unit with every member word p - 1 and
+    with every word p - 2 (bytes 255, 255, 255, 126: each byte product
+    at its largest), single members of widths 1, 8 and 9 over a row count
+    that is not a multiple of a tile and of width 2 over 2^24 rows (each
+    block flushes its 32-bit sums), a unit of odd widths and a Cpu-like
+    source-domain unit at the rows of a mesh shard (row0 > 0), a unit of
+    members that start 4 bytes past a 16-byte boundary (the kernels' 4-byte
+    copies in place of TMA bulk copies), a unit of 18 members (two
+    launches each) and one of 480 columns (the kernels' tiles of 32 rows).
     ro_accum writes (`first`) and adds in place.  Timed at the largest unit,
-    ro_accum adding in place (as every group of a height after its first)."""
+    ro_accum adding in place (as every group of a height after its first).
+    Prints each kernel's registers and spills (ptxas) and the IMMA
+    instructions of its SASS: there must be some."""
     import numpy as np
 
     from zkvm_brainfuck_tpu_torch.ops import openings as op
     from zkvm_brainfuck_tpu_torch.ops.field import GENERATOR, P
+
+    sass = openings_sass()
+    for fn, info in sass.items():
+        say(f"[build] {fn}: {info['registers']} registers, spill {info['spill_stores']} / "
+            f"{info['spill_loads']} bytes, stack {info['stack_frame']} bytes; {info['imma']} IMMA "
+            f"instructions in its SASS")
+        if not info["imma"]:
+            raise AssertionError(f"{fn}: no IMMA instruction in the SASS of openings.cu")
 
     rng = np.random.default_rng(9)
 
     def ef():
         return tuple(int(x) for x in rng.integers(0, P, 4))
 
-    cases = [("largest unit", OPEN_UNIT_LOG, GENERATOR, 0, 1 << OPEN_UNIT_LOG, OPEN_UNIT_WIDTHS),
-             ("odd widths, shard rows", 9, GENERATOR * 7 % P, 128, 64, (3, 5, 1)),
-             ("18 members", 7, 1, 0, 128, tuple(1 + k % 3 for k in range(18)))]
+    shifts = {"lde": GENERATOR, "shifted": GENERATOR * 7 % P, "source": 1, "one": 1}
+    fills = {"p-1": P - 1, "p-2": P - 2}
+
+    def member(h, w, fill):
+        if fill is None:
+            return rand(h, w)
+        if fill == "offset":
+            return rand(h * w + 1)[1:].view(h, w)
+        return torch.full((h, w), fills[fill], dtype=torch.int32, device=rand(1).device)
+
     err_o = err_r = 0
-    for name, log_m, shift, row0, h, widths in cases:
-        mats = [rand(h, w) for w in widths]
+    for name, (log_m, domain, row0, h, widths, fill) in OPENING_CASES.items():
+        shift = shifts[domain]
+        mats = [member(h, w, fill) for w in widths]
         z, s = ef(), ef()
         aps = rand(sum(widths), 4)
         args = (z, log_m, shift, row0)
@@ -715,7 +785,8 @@ def opening_kernels(torch, rand, compare, kernels, bounds):
     kernels["open_eval"] = dict(
         max_abs_err=err_o, ms=cuda_ms(torch, lambda: op.open_eval(mats, z, log_m, GENERATOR)),
         plain_ms=cuda_ms(torch, lambda: op.open_eval_plain(mats, z, log_m, GENERATOR), reps=3),
-        bound=bounds["open_eval"](mats, z, log_m, GENERATOR), shape=f"{shape} -> ({sum(OPEN_UNIT_WIDTHS)}, 4)")
+        bound=bounds["open_eval"](mats, z, log_m, GENERATOR), shape=f"{shape} -> ({sum(OPEN_UNIT_WIDTHS)}, 4)",
+        sass=sass["open_eval_kernel"])
     acc = base.clone()
     kernels["ro_accum"] = dict(
         max_abs_err=err_r,
@@ -723,9 +794,71 @@ def opening_kernels(torch, rand, compare, kernels, bounds):
         plain_ms=cuda_ms(torch, lambda: op.ro_accum_plain(acc, mats, aps, s, z, log_m, GENERATOR),
                          reps=3),
         bound=bounds["ro_accum"](acc, mats, aps, s, z, log_m, GENERATOR),
-        shape=f"{shape}, added into (2^{log_m}, 4)")
+        shape=f"{shape}, added into (2^{log_m}, 4)", sass=sass["ro_accum_kernel"])
     say(f"[kernels] open_eval and ro_accum bit-exact against open_eval_plain and ro_accum_plain "
-        f"at {len(cases)} units ({', '.join(c[0] for c in cases)}; ro_accum writing and adding)")
+        f"at {len(OPENING_CASES)} units ({'; '.join(OPENING_CASES)}; ro_accum writing and adding)")
+
+
+OPENING_FUNCS = ("open_eval_kernel", "ro_accum_kernel")
+
+
+def _opening_func(mangled: str) -> str:
+    """The opening kernel a mangled name holds, or the name itself."""
+    return next((f for f in OPENING_FUNCS if f in mangled), mangled)
+
+
+def ptxas_functions(log: str) -> dict:
+    """{kernel function: registers, spills and stack frame} from an nvcc
+    -Xptxas -v log (the opening kernels by their short names)."""
+    import re
+
+    out = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        name = _opening_func(chunk.split("'")[0])
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        stack = re.search(r"(\d+) bytes stack frame", chunk)
+        out[name] = {"registers": int(regs.group(1)) if regs else None,
+                     "spill_stores": int(spill.group(1)) if spill else None,
+                     "spill_loads": int(spill.group(2)) if spill else None,
+                     "stack_frame": int(stack.group(1)) if stack else None}
+    return out
+
+
+def sass_imma(lib_path: str) -> dict:
+    """{kernel function: IMMA instructions in its SASS}, from cuobjdump
+    --dump-sass of a built library."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = subprocess.run([tool, "--dump-sass", lib_path], capture_output=True, text=True,
+                         timeout=300)
+    if res.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {lib_path}:\n{res.stderr}")
+    counts, name = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            name = _opening_func(line.split("Function :")[1].strip())
+            counts[name] = 0
+        elif name is not None and "IMMA" in line:
+            counts[name] += 1
+    return counts
+
+
+def openings_sass(lib_path: str = None, log: str = None) -> dict:
+    """Registers, spills and IMMA count of open_eval_kernel and
+    ro_accum_kernel in the built openings library (the committed source by
+    default; its ptxas log from build.LOGS, so the library must have been
+    built by this process)."""
+    from zkvm_brainfuck_tpu_torch import build
+
+    if lib_path is None:
+        lib_path = build.build_cuda(["openings.cu"])["openings.cu"]
+        log = build.LOGS.get("openings.cu", "")
+    ptx = ptxas_functions(log or "")
+    imma = sass_imma(lib_path)
+    empty = {"registers": None, "spill_stores": None, "spill_loads": None, "stack_frame": None}
+    return {fn: {**ptx.get(fn, empty), "imma": imma.get(fn, 0)} for fn in OPENING_FUNCS}
 
 
 # Tile-edge cases of the quotient kernel (csrc/quotient.cuh stages tiles of
